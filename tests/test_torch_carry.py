@@ -1,0 +1,105 @@
+"""The PyTorch port's state carry, config and import hygiene."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tpu3d.config import RegistrationConfig as JaxRegistrationConfig
+from tpu3d_torch import carry
+from tpu3d_torch.config import RegistrationConfig
+from tpu3d_torch.types import FPFHFeatures, PointCloud, RegistrationResult
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cloud_arrays(rng, n=100, cap=128, normals=True):
+    mask = np.arange(cap) < n
+    return {
+        "points": rng.normal(size=(cap, 3)).astype(np.float32),
+        "mask": mask,
+        "normals": rng.normal(size=(cap, 3)).astype(np.float32)
+        if normals else None,
+        "colors": None,
+    }
+
+
+@pytest.mark.parametrize("normals", [True, False])
+def test_cloud_round_trip(rng, normals):
+    arrays = _cloud_arrays(rng, normals=normals)
+    cloud = carry.from_numpy(PointCloud, arrays)
+    assert cloud.points.dtype == torch.float32 and cloud.mask.dtype == torch.bool
+    back = carry.to_numpy(cloud)
+    for k, v in arrays.items():
+        if v is None:
+            assert back[k] is None
+        else:
+            np.testing.assert_array_equal(back[k], v)
+
+
+def test_features_and_result_round_trip(rng):
+    feats = {
+        "descriptors": rng.uniform(size=(64, 33)).astype(np.float32),
+        "mask": rng.uniform(size=64) > 0.3,
+    }
+    f = carry.from_numpy(FPFHFeatures, feats)
+    back = carry.to_numpy(f)
+    np.testing.assert_array_equal(back["descriptors"], feats["descriptors"])
+    np.testing.assert_array_equal(back["mask"], feats["mask"])
+
+    res = {
+        "transformation": rng.normal(size=(4, 4)).astype(np.float32),
+        "fitness": np.float32(0.75),
+        "rmse": np.float32(1e-3),
+    }
+    r = carry.from_numpy(RegistrationResult, res)
+    assert r.fitness.shape == () and float(r.fitness) == 0.75
+    back = carry.to_numpy(r)
+    np.testing.assert_array_equal(back["transformation"], res["transformation"])
+    assert back["rmse"] == res["rmse"]
+
+
+def test_carry_from_jax_cloud(rng):
+    """A JAX PointCloud crosses over field by field, via numpy."""
+    from tpu3d.types import PointCloud as JaxPointCloud
+
+    pts = rng.normal(size=(70, 3)).astype(np.float32)
+    jc = JaxPointCloud.from_numpy(pts)
+    tc = carry.from_numpy(
+        PointCloud, {k: None if v is None else np.asarray(v)
+                     for k, v in jc._asdict().items()}
+    )
+    assert tc.capacity == jc.capacity == 128
+    np.testing.assert_array_equal(tc.points.numpy(), np.asarray(jc.points))
+    assert tc.count() == 70
+    tp = PointCloud.from_numpy(pts)
+    np.testing.assert_array_equal(tp.points.numpy(), tc.points.numpy())
+    np.testing.assert_array_equal(tp.mask.numpy(), tc.mask.numpy())
+
+
+def test_config_defaults_match_jax():
+    ours = dataclasses.asdict(RegistrationConfig())
+    theirs = dataclasses.asdict(JaxRegistrationConfig())
+    for k, v in ours.items():
+        assert theirs[k] == v, k
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, tpu3d_torch, tpu3d_torch.carry, tpu3d_torch.build\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'tpu3d' or m.startswith('tpu3d.')]\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert torch.get_float32_matmul_precision() == 'highest'\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert not torch.backends.cudnn.allow_tf32\n"
+    )
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

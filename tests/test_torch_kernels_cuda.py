@@ -1,0 +1,144 @@
+"""The port's CUDA kernels (K5, K6, K7) against their plain PyTorch
+versions, on the card. Every test here needs a CUDA device and skips
+without one.
+
+This file imports neither jax nor tpu3d, so it runs where they are not
+installed: ``python -m pytest --noconftest -m cuda
+tests/test_torch_kernels_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import tpu3d_torch
+from tpu3d_torch.ops import icp, icp_stats, nn, ransac, ransac_score
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("d", [3, 33])
+def test_nn_kernel_matches_plain(dev, d):
+    g = torch.Generator().manual_seed(d)
+    q = torch.randn(1000, d, generator=g)
+    t = torch.randn(1500, d, generator=g)
+    mask = torch.rand(1500, generator=g) > 0.1
+    pi, pd = nn.nearest_neighbor(q, t, mask)
+    before = nn.nearest_neighbor.launches
+    ki, kd = nn.nearest_neighbor(q.to(dev), t.to(dev), mask.to(dev))
+    torch.cuda.synchronize()
+    assert nn.nearest_neighbor.launches == before + 1
+    assert ki.is_cuda and ki.dtype == torch.int32
+    assert (ki.cpu() == pi).float().mean() > 0.99
+    torch.testing.assert_close(kd.cpu(), pd, rtol=1e-5, atol=1e-5)
+
+
+def test_nn_kernel_ties_and_mask(dev):
+    t = torch.zeros(300, 3)
+    t[:, 0] = 7.0
+    t[5:8, 0] = 1.0  # rows 5, 6, 7 tie for the query at x = 1
+    t[290:, 0] = 9.0  # rows past one tile
+    mask = torch.ones(300, dtype=torch.bool)
+    mask[5] = False
+    q = torch.tensor([[1.0, 0, 0], [9.0, 0, 0]])
+    ki, kd = nn.nearest_neighbor(q.to(dev), t.to(dev), mask.to(dev))
+    assert ki.cpu().tolist() == [6, 290]
+    assert kd.cpu().tolist() == [0.0, 0.0]
+
+
+def test_nn_kernel_rejects_wide_and_double(dev):
+    with pytest.raises(ValueError):
+        nn.nearest_neighbor(torch.zeros(4, 40, device=dev),
+                            torch.zeros(5, 40, device=dev),
+                            torch.ones(5, dtype=torch.bool, device=dev))
+    with pytest.raises(TypeError):
+        nn.nearest_neighbor(torch.zeros(4, 3, device=dev, dtype=torch.float64),
+                            torch.zeros(5, 3, device=dev, dtype=torch.float64),
+                            torch.ones(5, dtype=torch.bool, device=dev))
+
+
+def test_score_kernel_matches_plain(dev):
+    g = torch.Generator().manual_seed(0)
+    n, h = 3000, 2000
+    p = torch.rand(n, 3, generator=g) - 0.5
+    q = p + 3e-4 * torch.randn(n, 3, generator=g)
+    out = torch.rand(n, generator=g) < 0.4
+    q[out] += 0.05 + 0.15 * torch.rand(int(out.sum()), 3, generator=g)
+    mask = torch.rand(n, generator=g) > 0.1
+    feat, pq = ransac.build_scoring_factors(p, q, mask)
+    count = int(mask.sum())
+    table = ransac.build_rotation_table(torch.cat([p, q], 1), mask, count)
+    draw = ransac.torch_draws(0)
+    w16t, tn, _, _, _ = ransac.solve_rotation_chunk(
+        lambda e: draw(0, e), h, 0, table, count, 10**9)
+    thr2 = float(np.float32(0.0075) ** 2)
+    pc, pe = ransac_score.score_hypotheses(feat, pq, w16t, tn, thr2)
+    kc, ke = ransac_score.score_hypotheses(
+        feat.to(dev), pq.to(dev), w16t.to(dev), tn.to(dev), thr2)
+    torch.cuda.synchronize()
+    # Rows within the expansion's rounding band of thr² may flip; inliers
+    # here sit far inside it and outliers far outside.
+    assert (kc.cpu() - pc).abs().max() <= 2
+    assert (kc.cpu() == pc).float().mean() > 0.99
+    # Σerr² carries the expansion's per-row cancellation noise (~1e-6).
+    same = kc.cpu() == pc
+    assert torch.all(
+        (ke.cpu() - pe).abs()[same] <= 1e-3 * pe[same] + 1e-5 * pc[same]
+    )
+
+
+def test_icp_stats_kernel_matches_plain(dev):
+    g = torch.Generator().manual_seed(1)
+    m, n, block = 3000, 2048, 64
+    tp = torch.rand(m, 3, generator=g) * 2 - 1
+    tnrm = torch.nn.functional.normalize(torch.randn(m, 3, generator=g), dim=1)
+    tmask = torch.arange(m) < 2900
+    target = tpu3d_torch.PointCloud(points=tp, mask=tmask, normals=tnrm)
+    src = torch.rand(n, 3, generator=g) * 2 - 1
+    src = src[torch.argsort(src[:, 0])]
+    smask = torch.rand(n, generator=g) > 0.05
+    T = torch.eye(4)
+    T[:3, 3] = torch.tensor([0.01, -0.02, 0.005])
+    thr = 0.1
+    sp = icp.SlabStats(icp.build_icp_target(target), src, smask,
+                                 thr, block=block)(T)
+    tgt_d = tpu3d_torch.PointCloud(points=tp.to(dev), mask=tmask.to(dev),
+                                   normals=tnrm.to(dev))
+    before = icp_stats.icp_p2plane_stats.launches
+    sk = icp.SlabStats(icp.build_icp_target(tgt_d), src.to(dev),
+                                 smask.to(dev), thr, block=block)(T.to(dev))
+    torch.cuda.synchronize()
+    assert icp_stats.icp_p2plane_stats.launches == before + 1
+    assert float(sk.n_corr) == float(sp.n_corr) > 100
+    torch.testing.assert_close(sk.sum_d2.cpu(), sp.sum_d2, rtol=1e-5, atol=0)
+    torch.testing.assert_close(sk.ata.cpu(), sp.ata, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(sk.atb.cpu(), sp.atb, rtol=1e-4, atol=1e-6)
+
+
+def test_register_pair_on_card(dev):
+    from bench import make_pair
+
+    src, tgt, R, t = make_pair(2048, voxel=0.005)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=0.005,
+                                         ransac_max_iterations=30000)
+    counts = (nn.nearest_neighbor.launches,
+              ransac_score.score_hypotheses.launches,
+              icp_stats.icp_p2plane_stats.launches)
+    refined, _ = tpu3d_torch.register_pair(
+        tpu3d_torch.PointCloud.from_numpy(src, device=dev),
+        tpu3d_torch.PointCloud.from_numpy(tgt, device=dev), cfg)
+    T = refined.transformation.cpu().numpy()
+    assert np.abs(T[:3, :3] - R).max() < 0.02
+    assert np.abs(T[:3, 3] - t).max() < 0.005
+    # Capacity 2048: K5 serves both the descriptors and brute ICP, K6 the
+    # scoring; K7 (slab ICP) starts at 4,096 target rows.
+    assert nn.nearest_neighbor.launches > counts[0] + 1
+    assert ransac_score.score_hypotheses.launches > counts[1]
+    assert icp_stats.icp_p2plane_stats.launches == counts[2]

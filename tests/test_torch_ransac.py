@@ -1,0 +1,147 @@
+"""RANSAC port parity: the K6 plain version against the JAX scorers, and
+the chunked ``ransac_registration`` against the JAX one with the JAX
+draw stream replayed."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bench import make_pair
+from tpu3d.config import RegistrationConfig as JaxConfig
+from tpu3d.ops.ransac import build_scoring_factors as jax_factors
+from tpu3d.ops.ransac import pack_hypotheses
+from tpu3d.ops.ransac import ransac_registration as jax_ransac
+from tpu3d.ops.ransac import score_w16
+from tpu3d.ops.ransac_pallas import score_hypotheses_pallas
+from tpu3d.ops.transforms import kabsch_quat
+from tpu3d.registration import downsample_bucketed, prepare_features
+from tpu3d.types import PointCloud as JaxCloud
+from tpu3d_torch.ops import ransac, ransac_score
+from tpu3d_torch.types import FPFHFeatures, PointCloud
+
+VOXEL = 0.005
+
+
+def jax_draws(seed):
+    """The JAX package's per-(chunk, epoch) triples (ops/ransac.py)."""
+    hyp_key = jax.random.fold_in(jax.random.PRNGKey(seed), 7)
+
+    def draw(c, e):
+        k = jax.random.fold_in(jax.random.fold_in(hyp_key, c), e)
+        u = np.asarray(jax.random.randint(k, (3,), 0, 1 << 30))
+        return int(u[0]), int(u[1]), int(u[2])
+
+    return draw
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def test_torch_draws_are_deterministic_and_in_range():
+    d = ransac.torch_draws(42)
+    assert d(1, 2) == d(1, 2)
+    assert d(0, 0) != d(0, 1)
+    assert all(0 <= u < 1 << 30 for u in d(3, 4))
+
+
+def test_k6_plain_matches_jax_scorers(rng):
+    n, h = 600, 700
+    p = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    # Inliers sit far inside the threshold and outliers far outside it.
+    q = p + rng.normal(0, 3e-4, (n, 3)).astype(np.float32)
+    out = rng.uniform(size=n) < 0.4
+    q[out] += rng.uniform(0.05, 0.2, (out.sum(), 3)).astype(np.float32)
+    mask = rng.uniform(size=n) > 0.1
+    # Hypotheses: 3-point Kabsch fits of random triples — near the truth
+    # when all three are inliers, wild otherwise.
+    tri = rng.integers(0, n, (h, 3))
+    Rs, ts = kabsch_quat(jnp.asarray(p[tri]), jnp.asarray(q[tri]))
+    w16t, tn = pack_hypotheses(Rs, ts)
+    ft, pq = jax_factors(jnp.asarray(p), jnp.asarray(q), jnp.asarray(mask))
+    thr2 = np.float32((np.float32(VOXEL) * np.float32(1.5)) ** 2)
+    c_ref, e_ref = score_w16(ft, pq, w16t, tn, thr2)
+    c_pl, e_pl = score_hypotheses_pallas(ft, pq, w16t, tn, thr2,
+                                         interpret=True)
+    tft, tpq = ransac.build_scoring_factors(_t(p), _t(q), _t(mask))
+    np.testing.assert_array_equal(tft.numpy(), np.asarray(ft))
+    np.testing.assert_array_equal(tpq.numpy(), np.asarray(pq))
+    c, e = ransac_score.score_hypotheses(tft, tpq, _t(w16t), _t(tn),
+                                         float(thr2))
+    assert c.numpy().max() > 50  # the inputs exercise the threshold
+    # The rank-16 expansion cancels terms of O(1) (O(10) for a wild pose)
+    # down to err² ~ 1e-5, so f32 summation order moves err² by up to a
+    # few 1e-6: a row within 1e-5 of thr² may count in one scorer and not
+    # another. Counts must agree exactly on every hypothesis with no such
+    # row, and differ elsewhere by at most its number of such rows.
+    W = np.asarray(w16t, np.float64)
+    R64 = W[6:15].T.reshape(h, 3, 3)
+    err64 = (((p.astype(np.float64) @ R64.transpose(0, 2, 1))
+              + W[3:6].T[:, None, :] - q) ** 2).sum(-1)  # (h, n)
+    near = ((np.abs(err64 - thr2) < 1e-5) & mask[None, :]).sum(1)
+    clear = near == 0
+    assert clear.mean() > 0.3
+    for cr, er in ((c_ref, e_ref), (c_pl, e_pl)):
+        cr, er = np.asarray(cr), np.asarray(er)
+        np.testing.assert_array_equal(c.numpy()[clear], cr[clear])
+        assert np.all(np.abs(c.numpy() - cr) <= near)
+        # Σerr² over inliers carries the same per-row cancellation noise
+        # (the reported rmse is rescored directly for this reason).
+        assert np.all(
+            np.abs(e.numpy() - er)[clear] <= 1e-4 * er[clear] + 1e-5 * cr[clear]
+        )
+
+
+@pytest.fixture(scope="module")
+def prepared_4096():
+    src, tgt, R, t = make_pair(4096, voxel=VOXEL)
+    cfg = JaxConfig(voxel_size=VOXEL)
+    sd = downsample_bucketed(JaxCloud.from_numpy(src), cfg)
+    td = downsample_bucketed(JaxCloud.from_numpy(tgt), cfg)
+    assert sd.capacity == td.capacity == 4096
+    sd, sf = prepare_features(sd, cfg, "auto")
+    td, tf = prepare_features(td, cfg, "auto")
+    return sd, td, sf, tf
+
+
+def _to_torch(sd, td, sf, tf):
+    def cloud(c):
+        return PointCloud(points=_t(c.points), mask=_t(c.mask),
+                          normals=_t(c.normals))
+
+    def feat(f):
+        return FPFHFeatures(descriptors=_t(f.descriptors), mask=_t(f.mask))
+
+    return cloud(sd), cloud(td), feat(sf), feat(tf)
+
+
+def test_ransac_registration_replays_jax(prepared_4096):
+    """Same correspondences and the same draws give the same winner."""
+    sd, td, sf, tf = prepared_4096
+    from tpu3d.ops.ransac import feature_correspondences as jax_corr
+
+    ts, tt, tsf, ttf = _to_torch(sd, td, sf, tf)
+    corr_t = ransac.feature_correspondences(tsf, ttf)
+    np.testing.assert_array_equal(corr_t.numpy(), np.asarray(jax_corr(sf, tf)))
+
+    ref = jax_ransac(sd, td, sf, tf, VOXEL, max_iterations=30000)
+    got = ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
+                                     max_iterations=30000,
+                                     draws=jax_draws(42))
+    np.testing.assert_allclose(got.transformation.numpy(),
+                               np.asarray(ref.transformation), atol=1e-5)
+    assert float(got.fitness) == float(ref.fitness)
+    np.testing.assert_allclose(float(got.rmse), float(ref.rmse), rtol=1e-5)
+    assert float(got.fitness) > 0.3
+
+
+def test_unported_routes_raise(prepared_4096):
+    ts, tt, tsf, ttf = _to_torch(*prepared_4096)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
+                                   max_iterations=10000)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
+                                   max_iterations=30000, two_stage=True)

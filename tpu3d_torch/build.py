@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, on first use, into
+``tpu3d_torch/_build/`` (git-ignored; the file name carries a hash of the
+sources, so an edited source is rebuilt). The library is loaded with
+``ctypes``. Each C entry point launches on the stream it is given and
+returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
+exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry points and their argument types (pointers, ints, floats, and the
+# stream last).
+SIGNATURES = {
+    "tpu3d_nn_top1": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "tpu3d_ransac_score": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
+    "tpu3d_icp_p2plane_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: CUDA kernels cannot be built")
+    return found
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless a library for these sources exists;
+    returns its path. ``verbose`` adds ``-Xptxas -v`` and prints the
+    compiler's report (registers, shared memory, spills per kernel)."""
+    lib = BUILD_DIR / f"libtpu3d_kernels_{_digest()}.so"
+    if lib.exists() and not verbose:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += [str(p) for p in _sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a launch reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -1,0 +1,23 @@
+"""Where a kernel runs: replaces ``tpu3d/utils/platform.on_tpu``.
+
+The decision is made from the tensor a wrapper is given, never from what
+the machine has: a CUDA tensor launches the hand-written kernel, a CPU
+tensor takes the kernel's plain PyTorch version, anything else raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def launches_kernel(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on one CUDA device, False when every
+    tensor lies on the CPU; raises for a mix or another device type."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        if len({t.device for t in tensors}) != 1:
+            raise ValueError("tensors lie on different CUDA devices")
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"unsupported device mix {sorted(kinds)}")
