@@ -1,27 +1,42 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (tpu3d_torch) on one NVIDIA GPU.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [--points N] [--voxel V]
 
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from tpu3d_torch/csrc (nvcc, sm_90a) and print
-     the build time and the compiler's per-kernel resource report;
-  3. at the shapes the main path gives them (the bench fixture
-     ``make_pair(8192, voxel=0.005)``, bucket 8,192), hold each kernel
-     against its plain PyTorch version on the same card inputs and time
-     both (CUDA events, 2 warm runs, median of 7): K5 top-1 NN at D=33
-     (descriptors) and D=3 (points), K6 hypothesis scoring (25,600
-     hypotheses x 2,048 estimate rows, and 32 finalists x 8,192 rows), K7
-     ICP statistics (8,192 queries over the slab windows);
-  4. drive ``tpu3d_torch.register_pair`` on that pair (100,000 RANSAC
-     hypotheses, ICP <= 200 iterations): launch counts of K5, K6 and K7
-     must all be > 0 in that run and the pose must pass bench.py's quality
-     gate (rotation error < 0.02, translation error < 0.005 m); then time
-     warm pairs and each stage of one pair.
+  2. build the CUDA kernels from tpu3d_torch/csrc (one nvcc per source, all
+     started together, sm_90a) and print the build time and the compiler's
+     per-kernel resource report;
+  3. the reference-parity route at bucket 8,192 (the bench fixture
+     ``make_pair(8192, voxel=0.005)``): K5 top-1 NN at D=33 and D=3, K6
+     hypothesis scoring (25,600 hypotheses x 2,048 estimate rows, and 32
+     finalists x 8,192 rows) and K7 ICP statistics against their plain
+     PyTorch versions on the same card inputs; then
+     ``tpu3d_torch.register_pair`` with the K5/K6/K7 launch counts, bench.py's
+     quality gate (rotation error < 0.02, translation error < 0.005 m), warm
+     pairs and a stage breakdown;
+  4. the at-scale route (``make_pair(100352)``, voxel 0.002, every other
+     field of RegistrationConfig at its default: bucket 131,072, the sparse
+     arm, 100,000 hypotheses, ICP <= 200 iterations):
+     a. K2, K3 and K4 against their plain versions on the target's dense
+        operands (block 128), each fed the kernel chain's inputs;
+     b. the sparse prepare of the source against the dense prepare at
+        block 256, bit for bit on every retained row;
+     c. K5, K6 and K7 against their plain versions at this route's shapes,
+        with the library call beside K5 and K6;
+     d. ``tpu3d_torch.register_pair``: all six launch counts > 0 in that
+        run, the quality gate, the escalation flag, warm pairs, a stage
+        breakdown, peak device memory and one pair's device-busy time
+        (torch.profiler).
+  Kernel and plain times are CUDA events, 2 warm runs, median of 5.
+  ``bound_ms`` is the larger of this run's operations over 67 TFLOP/s
+  (fp32 without tensor cores) and its bytes (each input read once, each
+  output written once) over 3.35 TB/s, an H100 SXM's peaks.
+  ``--points``/``--voxel`` shrink phase 4 for a rehearsal off the card.
 
 Output: progress on stderr; on stdout the nvidia-smi line, a JSON line of
-per-kernel results, a JSON line of main-path results, and last the line
+per-kernel results, one JSON line per route, and last the line
 {"ok": true, "device": {...}}. Exits non-zero, with no "ok" line, when
 there is no CUDA device, when the repository is not beside the script, or
 when any phase fails.
@@ -29,6 +44,7 @@ when any phase fails.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -40,13 +56,15 @@ import traceback
 REPO = os.path.dirname(os.path.abspath(__file__))
 VOXEL = 0.005
 N_POINTS = 8192
+PEAK_FP32 = 67e12  # FLOP/s, H100 SXM without tensor cores
+PEAK_HBM = 3.35e12  # bytes/s
 
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def cuda_ms(torch, fn, warm=2, reps=7):
+def cuda_ms(torch, fn, warm=2, reps=5):
     """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
     for _ in range(warm):
         fn()
@@ -63,38 +81,184 @@ def cuda_ms(torch, fn, warm=2, reps=7):
     return statistics.median(times)
 
 
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time for this work on the card."""
+    t_ops = flops / PEAK_FP32 * 1e3
+    t_bytes = nbytes / PEAK_HBM * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
 
 
-def run():
-    import numpy as np
-    import torch
+class Stages:
+    """Host-clock stage times, synchronised at each stage boundary."""
 
-    sys.path.insert(0, REPO)
+    def __init__(self, torch):
+        self.torch = torch
+        self.ms = {}
+
+    def __call__(self, name, fn):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        self.torch.cuda.synchronize()
+        self.ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+
+def pair_times(torch, fn, n):
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r, _ = fn()
+        float(r.fitness)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def gate(np, refined, R_true, t_true):
+    T = refined.transformation.cpu().numpy()
+    rot = float(np.abs(T[:3, :3] - R_true).max())
+    trn = float(np.abs(T[:3, 3] - t_true).max())
+    check(np.isfinite(T).all() and T.shape == (4, 4), "non-finite pose")
+    check(rot < 0.02 and trn < 0.005,
+          f"quality gate failed: rotation {rot}, translation {trn}")
+    return rot, trn
+
+
+def nn_phase(torch, nn, q, qmask, t, m, suffix, entry):
+    """K5 kernel against its plain version and the library call.
+
+    Each version picks the least d² in its own fp32 rounding of
+    ‖t‖² − 2t·q, so the two may pick different rows among near-equal
+    candidates (dense descriptor fields have many). Held: the returned d²
+    agree, and on every valid row where the picks differ, the two picks'
+    d² recomputed in float64 differ by at most 1e-6 (a near-tie)."""
+    ki, kd = nn.nearest_neighbor(q, t, m)
+    pi, pd = nn.nearest_neighbor_plain(q, t, m)
+    torch.cuda.synchronize()
+    differ = (ki != pi) & qmask
+    agree = 1.0 - float(differ.sum()) / max(int(qmask.sum()), 1)
+    err = float((kd - pd).abs().max())
+    rel = float(((kd - pd).abs() / pd.abs().clamp_min(1.0)).max())
+    rows = differ.nonzero()[:, 0]
+    q64 = q[rows].double()
+    gap = ((t[ki[rows].long()].double() - q64).pow(2).sum(1)
+           - (t[pi[rows].long()].double() - q64).pow(2).sum(1)).abs()
+    tie_gap = float(gap.max()) if rows.numel() else 0.0
+    log(f"K5{suffix} {tuple(q.shape)} x {tuple(t.shape)}: index agreement "
+        f"{agree:.6f} on valid rows, largest float64 d2 gap of differing "
+        f"picks {tie_gap:.3e}, max abs d2 err {err:.3e}, max rel d2 err "
+        f"{rel:.3e}")
+    check(tie_gap <= 1e-6, f"K5{suffix} picks differ beyond a tie: {tie_gap}")
+    check(rel <= 1e-5, f"K5{suffix} d2 error {rel}")
+    qn, d = q.shape
+    mn = t.shape[0]
+    b_ms, b_by = bound(2.0 * qn * mn * d, nbytes(q, t, m, ki, kd))
+    entry.update({
+        f"max_abs_err{suffix}": err, f"index_agreement{suffix}": agree,
+        f"tie_gap{suffix}": tie_gap,
+        f"ms{suffix}": cuda_ms(torch, lambda: nn.nearest_neighbor(q, t, m)),
+        f"plain_ms{suffix}": cuda_ms(
+            torch, lambda: nn.nearest_neighbor_plain(q, t, m)),
+        f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by,
+    })
+    tm = torch.where(m[:, None], t, 1.0e6)
+    tn = (tm * tm).sum(1)
+
+    def lib():
+        return torch.addmm(tn[None, :], q, tm.T, alpha=-2.0).min(dim=1)
+
+    entry[f"library_ms{suffix}"] = cuda_ms(torch, lib)
+
+
+def score_phase(torch, ransac_score, args, suffix, entry):
+    """K6 kernel against its plain version and the library call."""
+    kc, ke = ransac_score.score_hypotheses(*args)
+    pc, pe = ransac_score.score_hypotheses_plain(*args)
+    torch.cuda.synchronize()
+    dc = float((kc - pc).abs().max())
+    same = kc == pc
+    frac = float(same.float().mean())
+    e_ok = bool(torch.all(
+        (ke - pe).abs()[same] <= 1e-3 * pe[same] + 1e-5 * pc[same]))
+    log(f"K6{suffix} H={args[2].shape[1]} N={args[0].shape[1]}: max count "
+        f"diff {dc}, equal counts {frac:.6f}, err sums ok {e_ok}")
+    # Rows within the rank-16 expansion's rounding band of thr² may count
+    # in one order of summation and not the other.
+    check(dc <= 2 and frac >= 0.99 and e_ok, f"K6{suffix} disagrees")
+    ft, pq, w, tn, thr2 = args
+    n, h = ft.shape[1], w.shape[1]
+    b_ms, b_by = bound(2.0 * h * n * 16, nbytes(ft, pq, w, tn, kc, ke))
+    entry.update({
+        f"max_abs_err{suffix}": dc,
+        f"ms{suffix}": cuda_ms(
+            torch, lambda: ransac_score.score_hypotheses(*args)),
+        f"plain_ms{suffix}": cuda_ms(
+            torch, lambda: ransac_score.score_hypotheses_plain(*args)),
+        f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by,
+    })
+    def lib():
+        err2 = torch.addmm(pq[:, None], ft.T, w) + tn[None, :]
+        inl = err2 < thr2
+        return inl.sum(0), torch.where(inl, err2, 0.0).sum(0)
+
+    entry[f"library_ms{suffix}"] = cuda_ms(torch, lib)
+
+
+def icp_phase(torch, icp, icp_stats, index, src_pts, smask, T, thr, suffix,
+              entry):
+    """K7 kernel against its plain version on the slab windows at T."""
+    x0 = (src_pts @ T[:3, :3].T + T[:3, 3])[:, 0]
+    _, order = torch.sort(torch.where(smask, x0, 3e4), stable=True)
+    args = icp.SlabStats(index, src_pts[order], smask[order],
+                         thr).kernel_args(T)
+    real = icp_stats.icp_p2plane_stats
+    kp = real(*args)
+    pp = icp_stats.icp_p2plane_stats_plain(*args)
+    torch.cuda.synchronize()
+    ks = icp_stats.unpack_partials(kp)
+    ps = icp_stats.unpack_partials(pp)
+    err = float((kp - pp).abs().max())
+    pts, qmask, packed, lo, length, _, block = args
+    log(f"K7{suffix}: {pts.shape[0]} queries, n_corr {float(ks[2])} vs "
+        f"{float(ps[2])}, max partial err {err:.3e}, window rows max "
+        f"{int(length.max())} mean {float(length.float().mean()):.1f}")
+    check(float(ks[2]) == float(ps[2]) > 0, "K7 n_corr")
+    check(torch.allclose(ks[0], ps[0], rtol=1e-4, atol=1e-5), "K7 JtJ")
+    check(torch.allclose(ks[1], ps[1], rtol=1e-4, atol=1e-6), "K7 Jtr")
+    check(torch.allclose(ks[3], ps[3], rtol=1e-5, atol=0), "K7 sum d2")
+    # Work: d² (8 operations) for every (valid query, window row) pair,
+    # and ~80 for each valid query's match and partials.
+    valid_b = (qmask > 0.5).reshape(-1, block).sum(1)
+    pairs = int((valid_b * length).sum())
+    b_ms, b_by = bound(8.0 * pairs + 80.0 * int(valid_b.sum()),
+                       nbytes(pts, qmask, packed, lo, length, kp))
+    entry.update({
+        f"max_abs_err{suffix}": err,
+        f"ms{suffix}": cuda_ms(torch, lambda: real(*args)),
+        f"plain_ms{suffix}": cuda_ms(
+            torch, lambda: icp_stats.icp_p2plane_stats_plain(*args)),
+        f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by,
+    })
+
+
+def reference_route(torch, np, dev):
+    """Phase 3: bucket 8,192, the reference-parity route."""
     import tpu3d_torch
     from bench import make_pair
-    from tpu3d_torch import build
     from tpu3d_torch.ops import icp, icp_stats, nn, ransac, ransac_score
     from tpu3d_torch.registration import downsample_bucketed, prepare_features
 
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-
-    # --- build -------------------------------------------------------------
-    t0 = time.perf_counter()
-    build.build(verbose=True)
-    build.library()
-    build_s = time.perf_counter() - t0
-    log(f"kernels built in {build_s:.1f} s")
-
-    # --- slice inputs ------------------------------------------------------
     src_np, tgt_np, R_true, t_true = make_pair(N_POINTS, voxel=VOXEL)
     cfg = tpu3d_torch.RegistrationConfig(voxel_size=VOXEL)
     src = tpu3d_torch.PointCloud.from_numpy(src_np, device=dev)
@@ -105,41 +269,17 @@ def run():
     sd, sf = prepare_features(sd, cfg)
     td, tf = prepare_features(td, cfg)
     torch.cuda.synchronize()
-    log(f"prepared: {sd.count()} / {td.count()} rows, bucket {sd.capacity}")
+    log(f"bucket 8192: {sd.count()} / {td.count()} rows")
 
-    kernels = []
+    k5, k6, k7 = {}, {}, {}
+    sfx = "_b8192"
+    nn_phase(torch, nn, sf.descriptors, sd.mask, tf.descriptors, tf.mask,
+             sfx, k5)
+    nn_phase(torch, nn, sd.points, sd.mask, td.points, td.mask,
+             "_d3" + sfx, k5)
 
-    # --- K5 ----------------------------------------------------------------
-    k5 = {"name": "nn_top1 (K5)", "route": "cuda",
-          "source": "tpu3d_torch/csrc/nn.cu",
-          "replaces": "tpu3d/ops/nn_pallas.py:111"}
-    for d, (q, t, m) in (
-        (33, (sf.descriptors, tf.descriptors, tf.mask)),
-        (3, (sd.points, td.points, td.mask)),
-    ):
-        ki, kd = nn.nearest_neighbor(q, t, m)
-        pi, pd = nn.nearest_neighbor_plain(q, t, m)
-        torch.cuda.synchronize()
-        agree = float((ki == pi).float().mean())
-        err = float((kd - pd).abs().max())
-        rel = float(((kd - pd).abs() / pd.abs().clamp_min(1.0)).max())
-        log(f"K5 D={d}: index agreement {agree:.6f}, max abs d2 err "
-            f"{err:.3e}, max rel d2 err {rel:.3e}")
-        # Indices may differ only on near-ties: every row's d² must agree.
-        check(agree >= 0.999, f"K5 D={d} index agreement {agree}")
-        check(rel <= 1e-5, f"K5 D={d} d2 error {rel}")
-        ms = cuda_ms(torch, lambda: nn.nearest_neighbor(q, t, m))
-        plain = cuda_ms(torch, lambda: nn.nearest_neighbor_plain(q, t, m))
-        suffix = "" if d == 33 else "_d3"
-        k5.update({f"max_abs_err{suffix}": err, f"ms{suffix}": ms,
-                   f"plain_ms{suffix}": plain,
-                   f"index_agreement{suffix}": agree})
-    kernels.append(k5)
-
-    # --- K6 ----------------------------------------------------------------
     corr = ransac.feature_correspondences(sf, tf).long()
-    p = sd.points
-    qq = td.points[corr]
+    p, qq = sd.points, td.points[corr]
     count = sd.count()
     feat, pq = ransac.build_scoring_factors(p, qq, sd.mask)
     table = ransac.build_rotation_table(torch.cat([p, qq], 1), sd.mask, count)
@@ -149,75 +289,21 @@ def run():
         lambda e: draw(0, e), ransac.hypothesis_chunk(iters), 0, table,
         count, iters)
     feat_e, pq_e = ransac.build_scoring_factors(
-        *(ransac.strided_rows(x, ransac.EST_CAP) for x in (p, qq, sd.mask)))
+        *(ransac.strided_rows(x, 2048) for x in (p, qq, sd.mask)))
     thr2 = float((np.float32(VOXEL) * np.float32(1.5)) ** 2)
-    k6 = {"name": "ransac_score (K6)", "route": "cuda",
-          "source": "tpu3d_torch/csrc/ransac_score.cu",
-          "replaces": "tpu3d/ops/ransac_pallas.py:51"}
-    worst = 0.0
-    for tag, args in (
-        ("", (feat_e, pq_e, w16t, tn, thr2)),
-        ("_finalists", (feat, pq, w16t[:, :32].contiguous(), tn[:32], thr2)),
-    ):
-        kc, ke = ransac_score.score_hypotheses(*args)
-        pc, pe = ransac_score.score_hypotheses_plain(*args)
-        torch.cuda.synchronize()
-        dc = float((kc - pc).abs().max())
-        same = kc == pc
-        frac = float(same.float().mean())
-        e_ok = bool(torch.all(
-            (ke - pe).abs()[same] <= 1e-3 * pe[same] + 1e-5 * pc[same]))
-        log(f"K6{tag}: max count diff {dc}, equal counts {frac:.6f}, "
-            f"max count {float(kc.max())}, err sums ok {e_ok}")
-        # Rows within the rank-16 expansion's rounding band of thr² may
-        # count in one order of summation and not the other.
-        check(dc <= 2 and frac >= 0.99 and e_ok, f"K6{tag} disagrees")
-        worst = max(worst, dc)
-        k6[f"ms{tag}"] = cuda_ms(
-            torch, lambda: ransac_score.score_hypotheses(*args))
-        k6[f"plain_ms{tag}"] = cuda_ms(
-            torch, lambda: ransac_score.score_hypotheses_plain(*args))
-    k6["max_abs_err"] = worst
-    kernels.append(k6)
+    score_phase(torch, ransac_score, (feat_e, pq_e, w16t, tn, thr2), sfx, k6)
+    score_phase(torch, ransac_score,
+                (feat, pq, w16t[:, :32].contiguous(), tn[:32], thr2),
+                "_finalists" + sfx, k6)
 
-    # --- K7 ----------------------------------------------------------------
     T_true = torch.eye(4, device=dev)
     T_true[:3, :3] = torch.from_numpy(R_true).to(dev)
     T_true[:3, 3] = torch.from_numpy(t_true).to(dev)
-    index = icp.build_icp_target(td)
-    x0 = (sd.points @ T_true[:3, :3].T + T_true[:3, 3])[:, 0]
-    _, order = torch.sort(torch.where(sd.mask, x0, 3e4), stable=True)
-    thr = VOXEL * cfg.icp_distance_factor
-    args = icp.SlabStats(index, sd.points[order], sd.mask[order],
-                         thr).kernel_args(T_true)
-    real = icp_stats.icp_p2plane_stats
-    kp = real(*args)
-    pp = icp_stats.icp_p2plane_stats_plain(*args)
-    torch.cuda.synchronize()
-    ks = icp_stats.unpack_partials(kp)
-    ps = icp_stats.unpack_partials(pp)
-    err7 = float((kp - pp).abs().max())
-    log(f"K7: n_corr {float(ks[2])} vs {float(ps[2])}, "
-        f"max partial err {err7:.3e}, window rows max "
-        f"{int(args[4].max())} mean {float(args[4].float().mean()):.1f}")
-    check(float(ks[2]) == float(ps[2]) > 0, "K7 n_corr")
-    check(torch.allclose(ks[0], ps[0], rtol=1e-4, atol=1e-5), "K7 JtJ")
-    check(torch.allclose(ks[1], ps[1], rtol=1e-4, atol=1e-6), "K7 Jtr")
-    check(torch.allclose(ks[3], ps[3], rtol=1e-5, atol=0), "K7 sum d2")
-    kernels.append({
-        "name": "icp_p2plane_stats (K7)", "route": "cuda",
-        "source": "tpu3d_torch/csrc/icp_stats.cu",
-        "replaces": "tpu3d/ops/icp_pallas.py:141",
-        "max_abs_err": err7,
-        "ms": cuda_ms(torch, lambda: real(*args)),
-        "plain_ms": cuda_ms(
-            torch, lambda: icp_stats.icp_p2plane_stats_plain(*args)),
-    })
+    icp_phase(torch, icp, icp_stats, icp.build_icp_target(td), sd.points,
+              sd.mask, T_true, VOXEL * cfg.icp_distance_factor, sfx, k7)
 
-    # --- main path -----------------------------------------------------------
     def pair():
-        refined, coarse = tpu3d_torch.register_pair(src, tgt, cfg)
-        return refined, coarse
+        return tpu3d_torch.register_pair(src, tgt, cfg)
 
     pair()  # warm: allocator and library state
     counters = (nn.nearest_neighbor, ransac_score.score_hypotheses,
@@ -228,42 +314,16 @@ def run():
     t0 = time.perf_counter()
     refined, coarse = pair()
     torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    first_ms = (time.perf_counter() - t0) * 1e3
     launches = [c.launches for c in counters]
-    for k, n in zip(kernels, launches):
-        k["launches"] = n
-    log(f"main path launches K5/K6/K7: {launches}")
+    log(f"bucket 8192 main path launches K5/K6/K7: {launches}")
     check(all(n > 0 for n in launches), f"a kernel did not launch: {launches}")
+    for k, n in zip((k5, k6, k7), launches):
+        k["launches" + sfx] = n
+    rot_err, trn_err = gate(np, refined, R_true, t_true)
+    times = [first_ms] + pair_times(torch, pair, 2)
 
-    T = refined.transformation.cpu().numpy()
-    rot_err = float(np.abs(T[:3, :3] - R_true).max())
-    trn_err = float(np.abs(T[:3, 3] - t_true).max())
-    fit = float(refined.fitness)
-    log(f"refined fitness {fit:.4f} rmse {float(refined.rmse):.6f} "
-        f"coarse fitness {float(coarse.fitness):.4f}; pose error rot "
-        f"{rot_err:.2e} trans {trn_err:.2e} m")
-    check(np.isfinite(T).all() and T.shape == (4, 4), "non-finite pose")
-    check(rot_err < 0.02 and trn_err < 0.005, "quality gate failed")
-
-    times = [first_s]
-    for _ in range(2):
-        t0 = time.perf_counter()
-        r, _ = pair()
-        float(r.fitness)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-
-    # Stage breakdown of one pair (host clock, synchronised per stage).
-    stages = {}
-
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        stages[name] = (time.perf_counter() - t0) * 1e3
-        return out
-
+    stage = Stages(torch)
     s_d = stage("downsample_ms", lambda: (downsample_bucketed(src, cfg),
                                           downsample_bucketed(tgt, cfg)))
     s_src = stage("prepare_source_ms", lambda: prepare_features(s_d[0], cfg))
@@ -275,28 +335,315 @@ def run():
     stage("icp_ms", lambda: icp.icp_refine(
         s_src[0], s_tgt[0], co.transformation, VOXEL * cfg.icp_distance_factor,
         max_iterations=cfg.icp_max_iterations))
-
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({
-        "main_path": "tpu3d_torch.register_pair",
+    route = {
+        "route": "reference parity", "main_path": "tpu3d_torch.register_pair",
         "fixture": f"bench.make_pair({N_POINTS}, voxel={VOXEL})",
-        "bucket": sd.capacity, "ransac_max_iterations":
-        cfg.ransac_max_iterations, "icp_max_iterations":
-        cfg.icp_max_iterations, "build_s": build_s,
-        "pair_ms": [t * 1e3 for t in times],
-        "pair_ms_median": statistics.median(times) * 1e3,
-        "stages_ms": stages, "fitness": fit, "coarse_fitness":
-        float(coarse.fitness), "rot_err": rot_err, "trans_err": trn_err,
-        "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
-    }), flush=True)
+        "bucket": sd.capacity, "pair_ms": times,
+        "pair_ms_median": statistics.median(times), "stages_ms": stage.ms,
+        "fitness": float(refined.fitness),
+        "coarse_fitness": float(coarse.fitness), "rot_err": rot_err,
+        "trans_err": trn_err, "launches": launches,
+    }
+    return k5, k6, k7, route
+
+
+def sweep_phase(torch, features, name, fn, plain, args, block, q8, entry,
+                per_neighbour, out_check):
+    """One prepare sweep's kernel against its plain version."""
+    ko = fn(*args, block)
+    po = plain(*args, block)
+    torch.cuda.synchronize()
+    err = float((ko - po).abs().max())
+    neighbours = out_check(ko, po)
+    lo, ln = args[2], args[3]
+    valid_b = (q8[3] > 0.5).reshape(-1, block).sum(1)
+    pairs = int((valid_b * ln.sum(1)).sum())
+    b_ms, b_by = bound(8.0 * pairs + per_neighbour * neighbours,
+                       nbytes(args[0], args[1], lo, ln, ko))
+    entry.update({
+        "max_abs_err": err, "pairs": pairs, "neighbours": neighbours,
+        "ms": cuda_ms(torch, lambda: fn(*args, block)),
+        "plain_ms": cuda_ms(torch, lambda: plain(*args, block)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
+    log(f"{name}: max abs err {err:.3e}, {pairs} pairs, {neighbours} "
+        f"neighbours, kernel {entry['ms']:.4f} ms, plain "
+        f"{entry['plain_ms']:.4f} ms")
+    return ko
+
+
+def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7):
+    """Phase 4: the at-scale route (sparse arm)."""
+    import tpu3d_torch
+    from bench import make_pair
+    from tpu3d_torch import registration as reg
+    from tpu3d_torch.ops import (
+        features,
+        fused_features,
+        icp,
+        icp_stats,
+        nn,
+        ransac,
+        ransac_score,
+    )
+
+    src_np, tgt_np, R_true, t_true = make_pair(n_points)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=voxel)
+    src = tpu3d_torch.PointCloud.from_numpy(src_np, device=dev)
+    tgt = tpu3d_torch.PointCloud.from_numpy(tgt_np, device=dev)
+    sd = reg.downsample_bucketed(src, cfg)
+    td = reg.downsample_bucketed(tgt, cfg)
+    # compact() keeps the input's rows when the bucket is larger, as the
+    # JAX package's does: the bucket of 100,352 input rows is 131,072, the
+    # capacity 100,352.
+    bucket = reg.bucket_capacity(td.count())
+    check(td.capacity >= reg.FUSED_CAPACITY_THRESHOLD, f"rows {td.capacity}")
+    check(reg.sparse_prepare_active(cfg, "fused", sd), "sparse arm inactive")
+    log(f"at scale: {sd.count()} / {td.count()} rows, bucket {bucket}, "
+        f"capacity {sd.capacity} / {td.capacity}")
+    radius = float(np.float32(voxel * 5.0))
+    r2 = float(np.float32(radius) * np.float32(radius))
+
+    # --- a. K2, K3, K4 on the target's dense operands ---------------------
+    block = 128
+    al, lo, ln = fused_features.aligned_layout(td, radius, block)
+    q8 = fused_features.moments_operands(al)
+    mp = q8.shape[1]
+    log(f"dense layout: Mp {mp}, {mp // block} blocks, window rows mean "
+        f"{float(ln.sum(1).float().mean()):.1f} max {int(ln.sum(1).max())}")
+    sweeps = []
+
+    def k2_check(ko, po):
+        check(torch.equal(ko[3], po[3]), "K2 counts differ")
+        well = (po[3] >= 3) & (q8[3] > 0.5)
+        cos = (ko[:3] * po[:3]).sum(0).abs()[well]
+        log(f"K2: normals |cos| min {float(cos.min()):.7f} on "
+            f"{int(well.sum())} rows")
+        check(float(cos.min()) >= 0.9999, "K2 normals disagree")
+        return int(po[3][q8[3] > 0.5].sum())
+
+    e2 = {"name": "moments_sweep (K2, with the K1 walk)", "route": "cuda",
+          "source": "tpu3d_torch/csrc/features.cu",
+          "replaces": "tpu3d/ops/features_pallas.py:200"}
+    nrm8 = sweep_phase(torch, features, "K2", features.moments_sweep,
+                       features.moments_sweep_plain,
+                       (q8, al.padded_points_t, lo, ln, r2), block, q8, e2,
+                       18.0, k2_check)
+    sweeps.append((e2, features.moments_sweep))
+
+    q8n, pb = fused_features.spfh_operands(al, nrm8)
+
+    def k3_check(ko, po):
+        check(torch.equal(ko[33], po[33]), "K3 counts differ")
+        live = po[33] > 0
+        differ = live & ~(ko[:33] == po[:33]).all(0)
+        frac = 1.0 - float(differ.sum()) / max(int(live.sum()), 1)
+        ids = differ.nonzero()[:, 0].tolist()
+        e3["rows_identical"] = frac
+        e3["rows_differing"] = len(ids)
+        e3["differing_rows"] = ids[:20]
+        log(f"K3: histograms identical on {frac:.6f} of {int(live.sum())} "
+            f"rows; {len(ids)} differing rows (padded-row ids) {ids[:20]}")
+        check(frac >= 0.999, "K3 histograms disagree")
+        return int(po[33][q8n[3] > 0.5].sum())
+
+    e3 = {"name": "spfh_sweep (K3, with the K1 walk)", "route": "cuda",
+          "source": "tpu3d_torch/csrc/features.cu",
+          "replaces": "tpu3d/ops/features_pallas.py:346"}
+    spfh40 = sweep_phase(torch, features, "K3", features.spfh_sweep,
+                         features.spfh_sweep_plain, (q8n, pb, lo, ln, r2),
+                         block, q8n, e3, 100.0, k3_check)
+    sweeps.append((e3, features.spfh_sweep))
+
+    pc = fused_features.fpfh_operands(al, spfh40)
+
+    def k4_check(ko, po):
+        check(torch.allclose(ko, po, rtol=1e-4, atol=1e-6), "K4 disagrees")
+        # Its neighbours are sweep B's (the same radius test on raw
+        # rather than centred coordinates).
+        return int(spfh40[33][q8[3] > 0.5].sum())
+
+    e4 = {"name": "fpfh_sweep (K4, with the K1 walk)", "route": "cuda",
+          "source": "tpu3d_torch/csrc/features.cu",
+          "replaces": "tpu3d/ops/features_pallas.py:390"}
+    sweep_phase(torch, features, "K4", features.fpfh_sweep,
+                features.fpfh_sweep_plain, (q8, pc, lo, ln, r2), block, q8,
+                e4, 69.0, k4_check)
+    sweeps.append((e4, features.fpfh_sweep))
+
+    # --- b. sparse equals dense on the source, block 256 -------------------
+    _, dense_f = fused_features.fused_prepare_features(sd, radius, block=256)
+    sub_c, sub_f, sub_orig = fused_features.fused_prepare_sparse(sd, radius)
+    sm = sub_f.mask
+    same = torch.equal(sub_f.descriptors[sm],
+                       dense_f.descriptors[sub_orig[sm]])
+    log(f"sparse subset: {int(sm.sum())} valid of {sm.shape[0]} rows; "
+        f"bit-identical to dense at block 256: {same}")
+    check(same and int(sm.sum()) > 0, "sparse prepare differs from dense")
+
+    # --- c. K5, K6, K7 at this route's shapes -----------------------------
+    tdp, tf = reg.prepare_features(td, cfg, "fused")
+    nn_phase(torch, nn, sub_f.descriptors, sm, tf.descriptors, tf.mask, "",
+             k5)
+    corr = ransac.feature_correspondences(sub_f, tf).long()
+    p, qq = sub_c.points, tdp.points[corr]
+    count = int(sm.sum())
+    feat, pq = ransac.build_scoring_factors(p, qq, sm)
+    table = ransac.build_rotation_table(torch.cat([p, qq], 1), sm, count)
+    draw = ransac.torch_draws(cfg.ransac_seed)
+    iters = cfg.ransac_max_iterations
+    w16t, tn, _, _, _ = ransac.solve_rotation_chunk(
+        lambda e: draw(0, e), ransac.hypothesis_chunk(iters), 0, table,
+        count, iters)
+    feat_e, pq_e = ransac.build_scoring_factors(
+        *(ransac.strided_rows(x, 2048) for x in (p, qq, sm)))
+    thr2 = float((np.float32(voxel) * np.float32(1.5)) ** 2)
+    score_phase(torch, ransac_score, (feat_e, pq_e, w16t, tn, thr2), "", k6)
+    score_phase(torch, ransac_score,
+                (feat, pq, w16t[:, :32].contiguous(), tn[:32], thr2),
+                "_finalists", k6)
+    T_true = torch.eye(4, device=dev)
+    T_true[:3, :3] = torch.from_numpy(R_true).to(dev)
+    T_true[:3, 3] = torch.from_numpy(t_true).to(dev)
+    stride = ransac.decimation_stride(sd.capacity, 16384)
+    icp_phase(torch, icp, icp_stats, icp.build_icp_target(tdp),
+              sd.points[: stride * 16384 : stride],
+              sd.mask[: stride * 16384 : stride], T_true,
+              voxel * cfg.icp_distance_factor, "", k7)
+    k7["library_ms"] = None
+
+    # --- d. the main path ---------------------------------------------------
+    def pair():
+        return tpu3d_torch.register_pair(src, tgt, cfg)
+
+    pair()  # warm: allocator and library state
+    counters = [k for _, k in sweeps] + [
+        nn.nearest_neighbor, ransac_score.score_hypotheses,
+        icp_stats.icp_p2plane_stats]
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refined, coarse = pair()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    launches = [c.launches for c in counters]
+    log(f"at-scale main path launches K2/K3/K4/K5/K6/K7: {launches}")
+    check(all(n > 0 for n in launches), f"a kernel did not launch: {launches}")
+    entries = [e for e, _ in sweeps] + [k5, k6, k7]
+    for e, n in zip(entries, launches):
+        e["launches"] = n
+    rot_err, trn_err = gate(np, refined, R_true, t_true)
+    log(f"at scale: refined fitness {float(refined.fitness):.5f} rmse "
+        f"{float(refined.rmse):.6f}, coarse fitness "
+        f"{float(coarse.fitness):.5f}; pose error rot {rot_err:.2e} trans "
+        f"{trn_err:.2e} m")
+    times = [first_ms] + pair_times(torch, pair, 3)
+
+    stage = Stages(torch)
+    s_d = stage("downsample_ms", lambda: (reg.downsample_bucketed(src, cfg),
+                                          reg.downsample_bucketed(tgt, cfg)))
+    t_p = stage("prepare_target_ms",
+                lambda: reg.prepare_features(s_d[1], cfg, "fused"))
+    s_p = stage("prepare_source_sparse_ms",
+                lambda: fused_features.fused_prepare_sparse(s_d[0], radius))
+    co = stage("ransac_ms", lambda: ransac.ransac_registration(
+        s_p[0], t_p[0], s_p[1], t_p[1], voxel,
+        max_iterations=cfg.ransac_max_iterations,
+        confidence=cfg.ransac_confidence, seed=cfg.ransac_seed,
+        corr_mode="exact"))
+    stage("icp_ms", lambda: icp.icp_refine(
+        s_d[0], t_p[0], co.transformation, voxel * cfg.icp_distance_factor,
+        max_iterations=cfg.icp_max_iterations))
+    _, _, escalated = stage("sparse_arm_ms", lambda: (
+        reg.sparse_register_escalated(
+            s_d[0], t_p[0], t_p[1], voxel=voxel, radius=radius,
+            escalate_below=cfg.min_fitness)))
+    route = {
+        "route": "at scale (sparse arm)",
+        "main_path": "tpu3d_torch.register_pair",
+        "fixture": f"bench.make_pair({n_points}), voxel {voxel}",
+        "bucket": bucket, "capacity": [sd.capacity, td.capacity],
+        "rows": [sd.count(), td.count()],
+        "escalated": bool(escalated), "pair_ms": times,
+        "pair_ms_median": statistics.median(times), "stages_ms": stage.ms,
+        "fitness": float(refined.fitness),
+        "coarse_fitness": float(coarse.fitness), "rot_err": rot_err,
+        "trans_err": trn_err, "launches": launches, "peak_mem_mb": peak_mb,
+        "device_busy_ms": device_busy_ms(torch, pair),
+    }
+    return [e for e, _ in sweeps], route
+
+
+def device_busy_ms(torch, fn):
+    """Device kernel time summed over one call of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        total += getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+    return total / 1e3
+
+
+def run(args):
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from tpu3d_torch import build
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+
+    t0 = time.perf_counter()
+    build.build(verbose=True)
+    build.library()
+    build_s = time.perf_counter() - t0
+    log(f"kernels built in {build_s:.1f} s")
+
+    k5, k6, k7, ref_route = reference_route(torch, np, dev)
+    k5.update({"name": "nn_top1 (K5)", "route": "cuda",
+               "source": "tpu3d_torch/csrc/nn.cu",
+               "replaces": "tpu3d/ops/nn_pallas.py:111"})
+    k6.update({"name": "ransac_score (K6)", "route": "cuda",
+               "source": "tpu3d_torch/csrc/ransac_score.cu",
+               "replaces": "tpu3d/ops/ransac_pallas.py:51"})
+    k7.update({"name": "icp_p2plane_stats (K7, with the one-window K1 walk)",
+               "route": "cuda", "source": "tpu3d_torch/csrc/icp_stats.cu",
+               "replaces": "tpu3d/ops/icp_pallas.py:141"})
+    sweeps, scale_route = at_scale_route(torch, np, dev, args.points,
+                                         args.voxel, k5, k6, k7)
+    scale_route["build_s"] = build_s
+
+    print(json.dumps({"kernels": sweeps + [k5, k6, k7]}), flush=True)
+    print(json.dumps(ref_route), flush=True)
+    print(json.dumps(scale_route), flush=True)
     return {
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                   "count": torch.cuda.device_count()},
+                   "count": 1},
     }
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--points", type=int, default=100352,
+                    help="points of the at-scale pair (bench.make_pair)")
+    ap.add_argument("--voxel", type=float, default=0.002,
+                    help="voxel size of the at-scale pair")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -309,7 +656,7 @@ def main() -> int:
         log("chip_smoke: tpu3d_torch/ is not beside this script")
         return 2
     try:
-        result = run()
+        result = run(args)
     except Exception:  # every phase is fatal: report and exit non-zero
         traceback.print_exc()
         return 1

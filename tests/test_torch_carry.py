@@ -31,7 +31,7 @@ def _cloud_arrays(rng, n=100, cap=128, normals=True):
 @pytest.mark.parametrize("normals", [True, False])
 def test_cloud_round_trip(rng, normals):
     arrays = _cloud_arrays(rng, normals=normals)
-    cloud = carry.from_numpy(PointCloud, arrays)
+    cloud = carry.from_numpy(PointCloud, arrays, device="cpu")
     assert cloud.points.dtype == torch.float32 and cloud.mask.dtype == torch.bool
     back = carry.to_numpy(cloud)
     for k, v in arrays.items():
@@ -46,7 +46,7 @@ def test_features_and_result_round_trip(rng):
         "descriptors": rng.uniform(size=(64, 33)).astype(np.float32),
         "mask": rng.uniform(size=64) > 0.3,
     }
-    f = carry.from_numpy(FPFHFeatures, feats)
+    f = carry.from_numpy(FPFHFeatures, feats, device="cpu")
     back = carry.to_numpy(f)
     np.testing.assert_array_equal(back["descriptors"], feats["descriptors"])
     np.testing.assert_array_equal(back["mask"], feats["mask"])
@@ -56,7 +56,7 @@ def test_features_and_result_round_trip(rng):
         "fitness": np.float32(0.75),
         "rmse": np.float32(1e-3),
     }
-    r = carry.from_numpy(RegistrationResult, res)
+    r = carry.from_numpy(RegistrationResult, res, device="cpu")
     assert r.fitness.shape == () and float(r.fitness) == 0.75
     back = carry.to_numpy(r)
     np.testing.assert_array_equal(back["transformation"], res["transformation"])
@@ -71,14 +71,33 @@ def test_carry_from_jax_cloud(rng):
     jc = JaxPointCloud.from_numpy(pts)
     tc = carry.from_numpy(
         PointCloud, {k: None if v is None else np.asarray(v)
-                     for k, v in jc._asdict().items()}
+                     for k, v in jc._asdict().items()}, device="cpu"
     )
     assert tc.capacity == jc.capacity == 128
     np.testing.assert_array_equal(tc.points.numpy(), np.asarray(jc.points))
     assert tc.count() == 70
-    tp = PointCloud.from_numpy(pts)
+    tp = PointCloud.from_numpy(pts, device="cpu")
     np.testing.assert_array_equal(tp.points.numpy(), tc.points.numpy())
     np.testing.assert_array_equal(tp.mask.numpy(), tc.mask.numpy())
+
+
+def test_state_defaults_to_the_card(rng):
+    """Entry points that make state put it on CUDA unless the caller asks
+    for the CPU: without a card that is an error, never a silent CPU run."""
+    import inspect
+
+    for fn in (PointCloud.from_numpy, carry.from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    pts = rng.normal(size=(10, 3)).astype(np.float32)
+    arrays = {"points": pts, "mask": np.ones(10, bool)}
+    if torch.cuda.is_available():
+        assert PointCloud.from_numpy(pts).points.is_cuda
+        assert carry.from_numpy(PointCloud, arrays).points.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            PointCloud.from_numpy(pts)
+        with pytest.raises((AssertionError, RuntimeError)):
+            carry.from_numpy(PointCloud, arrays)
 
 
 def test_config_defaults_match_jax():

@@ -21,6 +21,7 @@ from tpu3d.types import PointCloud as JaxCloud
 from tpu3d_torch.ops import icp, icp_stats
 from tpu3d_torch.ops.slab import block_slices
 from tpu3d_torch.types import PointCloud
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOXEL = 0.005
 
@@ -176,6 +177,41 @@ def test_icp_refine_matches_jax(n, backend):
     np.testing.assert_allclose(float(got.rmse), float(ref.rmse), rtol=1e-3,
                                atol=1e-5)
     assert float(got.fitness) > 0.9
+
+
+@pytest.fixture(scope="module")
+def prepared_4096():
+    return _prepared(4096)
+
+
+@pytest.mark.parametrize("final_metrics,polish_threshold", [
+    ("auto", 0.5), ("exact", 0.5), ("estimate", 0.5), ("auto", 2.0),
+])
+def test_icp_source_subset_matches_jax(prepared_4096, final_metrics,
+                                       polish_threshold):
+    """src_mode='auto' with src_cap=1,024 on a 4,096-row source: the
+    strided subset, the final metrics, and (threshold 2.0) the forced
+    full-source polish, from the same start as JAX."""
+    sd, td, R, t = prepared_4096
+    T0 = np.eye(4, dtype=np.float32)
+    T0[:3, :3] = R
+    T0[:3, 3] = t + np.float32([0.002, -0.001, 0.001])
+    kw = dict(max_iterations=50, src_cap=1024, final_metrics=final_metrics,
+              polish_threshold=polish_threshold)
+    ref = jax_icp_refine(sd, td, jnp.asarray(T0), VOXEL * 0.4, **kw)
+    ts, tt = _to_torch(sd), _to_torch(td)
+    got = icp.icp_refine(ts, tt, _t(T0), VOXEL * 0.4, **kw)
+    np.testing.assert_allclose(got.transformation.numpy(),
+                               np.asarray(ref.transformation), atol=1e-5)
+    np.testing.assert_allclose(float(got.fitness), float(ref.fitness),
+                               atol=1e-3)
+    np.testing.assert_allclose(float(got.rmse), float(ref.rmse), rtol=1e-3,
+                               atol=1e-6)
+    assert float(got.fitness) > 0.9
+    # A prebuilt target index gives the same result.
+    again = icp.icp_refine(ts, tt, _t(T0), VOXEL * 0.4,
+                           target_index=icp.build_icp_target(tt), **kw)
+    assert torch.equal(again.transformation, got.transformation)
 
 
 def test_point_to_point_raises():

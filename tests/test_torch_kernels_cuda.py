@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K5, K6, K7) against their plain PyTorch
-versions, on the card. Every test here needs a CUDA device and skips
+"""The port's CUDA kernels (K2-K7) against their plain PyTorch versions,
+on the card. Every test here needs a CUDA device and skips
 without one.
 
 This file imports neither jax nor tpu3d, so it runs where they are not
@@ -12,7 +12,15 @@ import pytest
 import torch
 
 import tpu3d_torch
-from tpu3d_torch.ops import icp, icp_stats, nn, ransac, ransac_score
+from tpu3d_torch.ops import (
+    features,
+    fused_features,
+    icp,
+    icp_stats,
+    nn,
+    ransac,
+    ransac_score,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -142,3 +150,95 @@ def test_register_pair_on_card(dev):
     assert nn.nearest_neighbor.launches > counts[0] + 1
     assert ransac_score.score_hypotheses.launches > counts[1]
     assert icp_stats.icp_p2plane_stats.launches == counts[2]
+
+
+def _surface_cloud(n, cap, seed=0):
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-0.3, 0.3, size=(n, 2)).astype(np.float32)
+    z = 0.7 + 0.03 * np.sin(25 * xy[:, 0]) * np.cos(22 * xy[:, 1])
+    return tpu3d_torch.PointCloud.from_numpy(
+        np.column_stack([xy, z]).astype(np.float32), capacity=cap,
+        device="cpu")
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_prepare_sweeps_match_plain(dev, block):
+    """K2, K3 and K4 on the card against their plain versions on the same
+    operands (each sweep fed the plain chain's inputs)."""
+    cloud = _surface_cloud(20000, 20480)
+    r = 0.012
+    r2 = float(np.float32(r) * np.float32(r))
+    al, lo, ln = fused_features.aligned_layout(cloud, r, block)
+    q8 = fused_features.moments_operands(al)
+    on = [x.to(dev) for x in (q8, al.padded_points_t, lo, ln)]
+    counts = (features.moments_sweep.launches, features.spfh_sweep.launches,
+              features.fpfh_sweep.launches)
+
+    pa = features.moments_sweep(q8, al.padded_points_t, lo, ln, r2, block)
+    ka = features.moments_sweep(*on, r2, block).cpu()
+    assert torch.equal(ka[3], pa[3]) and float(pa[3].max()) > 10
+    well = pa[3] >= 3
+    cos = (ka[:3] * pa[:3]).sum(0).abs()
+    assert float(cos[well].min()) >= 0.9999
+
+    q8n, pb = fused_features.spfh_operands(al, pa)
+    pbk = features.spfh_sweep(q8n, pb, lo, ln, r2, block)
+    kbk = features.spfh_sweep(q8n.to(dev), pb.to(dev), on[2], on[3], r2,
+                              block).cpu()
+    assert torch.equal(kbk[33], pbk[33])
+    same = (kbk[:33] == pbk[:33]).all(0)
+    assert float(same.float().mean()) >= 0.999
+
+    pc = fused_features.fpfh_operands(al, pbk)
+    pcs = features.fpfh_sweep(q8, pc, lo, ln, r2, block)
+    kcs = features.fpfh_sweep(on[0], pc.to(dev), on[2], on[3], r2,
+                              block).cpu()
+    torch.testing.assert_close(kcs, pcs, rtol=1e-4, atol=1e-6)
+    torch.cuda.synchronize()
+    assert (features.moments_sweep.launches, features.spfh_sweep.launches,
+            features.fpfh_sweep.launches) == tuple(c + 1 for c in counts)
+
+
+def test_prepare_sweeps_reject_bad_block(dev):
+    z = torch.zeros((8, 192), device=dev)
+    ij = torch.zeros((3, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        features.moments_sweep(z, z[:3], ij, ij, 1e-4, 64)
+
+
+@pytest.mark.parametrize("block,degenerate", [(128, False), (256, False),
+                                              (128, True)])
+def test_sparse_equals_dense_on_card(dev, block, degenerate):
+    cloud = _surface_cloud(20000, 20480, seed=1)
+    if degenerate:
+        pts = cloud.points.clone()
+        pts[:, 0] = 0.0
+        cloud = cloud._replace(points=pts)
+    cloud = tpu3d_torch.PointCloud(points=cloud.points.to(dev),
+                                   mask=cloud.mask.to(dev))
+    _, df = fused_features.fused_prepare_features(cloud, 0.012, block=block)
+    _, sf, sorig = fused_features.fused_prepare_sparse(
+        cloud, 0.012, corr_cap=4096, block=block)
+    sm = sf.mask
+    assert int(sm.sum()) > 100
+    assert torch.equal(sf.descriptors[sm], df.descriptors[sorig[sm]])
+
+
+def test_sparse_register_pair_on_card(dev):
+    """The sparse arm at bucket 32,768 launches every kernel K2-K7."""
+    from bench import make_pair
+
+    src, tgt, R, t = make_pair(40000, voxel=0.004)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=0.004,
+                                         ransac_max_iterations=30000)
+    kernels = (features.moments_sweep, features.spfh_sweep,
+               features.fpfh_sweep, nn.nearest_neighbor,
+               ransac_score.score_hypotheses, icp_stats.icp_p2plane_stats)
+    before = [k.launches for k in kernels]
+    refined, _ = tpu3d_torch.register_pair(
+        tpu3d_torch.PointCloud.from_numpy(src, device=dev),
+        tpu3d_torch.PointCloud.from_numpy(tgt, device=dev), cfg)
+    T = refined.transformation.cpu().numpy()
+    assert np.abs(T[:3, :3] - R).max() < 0.02
+    assert np.abs(T[:3, 3] - t).max() < 0.005
+    assert all(k.launches > b for k, b in zip(kernels, before))

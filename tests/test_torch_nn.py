@@ -11,6 +11,7 @@ import torch
 from tpu3d.ops.neighbors import nearest_neighbor_xla
 from tpu3d.ops.nn_pallas import nearest_neighbor_pallas
 from tpu3d_torch.ops import nn
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _inputs(rng, d, q=150, m=230):

@@ -23,6 +23,7 @@ from tpu3d_torch.ops.normals import estimate_normals
 from tpu3d_torch.ops.voxel import compact, voxel_downsample
 from tpu3d_torch.registration import downsample_bucketed, surface_neighbors
 from tpu3d_torch.types import PointCloud
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOXEL = 0.005
 
@@ -56,7 +57,7 @@ def test_voxel_downsample_and_compact(n, voxel):
     src, _, _, _ = make_pair(n, seed=1, voxel=0.005)
     jc = JaxCloud.from_numpy(src)
     jd = jax_voxel(jc, voxel)
-    td = voxel_downsample(PointCloud.from_numpy(src), voxel)
+    td = voxel_downsample(PointCloud.from_numpy(src, device="cpu"), voxel)
     assert int(td.mask.sum()) == int(jd.count())
     np.testing.assert_array_equal(td.mask.numpy(), np.asarray(jd.mask))
     np.testing.assert_allclose(td.points.numpy(), np.asarray(jd.points),
@@ -72,7 +73,7 @@ def test_voxel_downsample_and_compact(n, voxel):
 def test_downsample_bucketed_matches():
     src, _, _, _ = make_pair(2500, seed=2, voxel=VOXEL)
     jd = jax_downsample(JaxCloud.from_numpy(src), JaxConfig(voxel_size=VOXEL))
-    td = downsample_bucketed(PointCloud.from_numpy(src),
+    td = downsample_bucketed(PointCloud.from_numpy(src, device="cpu"),
                              RegistrationConfig(voxel_size=VOXEL))
     assert td.capacity == jd.capacity
     np.testing.assert_allclose(td.points.numpy(), np.asarray(jd.points),

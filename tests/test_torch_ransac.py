@@ -11,6 +11,7 @@ import torch
 from bench import make_pair
 from tpu3d.config import RegistrationConfig as JaxConfig
 from tpu3d.ops.ransac import build_scoring_factors as jax_factors
+from tpu3d.ops.ransac import decimation_stride as jax_decimation_stride
 from tpu3d.ops.ransac import pack_hypotheses
 from tpu3d.ops.ransac import ransac_registration as jax_ransac
 from tpu3d.ops.ransac import score_w16
@@ -20,6 +21,7 @@ from tpu3d.registration import downsample_bucketed, prepare_features
 from tpu3d.types import PointCloud as JaxCloud
 from tpu3d_torch.ops import ransac, ransac_score
 from tpu3d_torch.types import FPFHFeatures, PointCloud
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOXEL = 0.005
 
@@ -135,6 +137,37 @@ def test_ransac_registration_replays_jax(prepared_4096):
     assert float(got.fitness) == float(ref.fitness)
     np.testing.assert_allclose(float(got.rmse), float(ref.rmse), rtol=1e-5)
     assert float(got.fitness) > 0.3
+
+
+def test_decimation_stride_matches_jax():
+    for n in range(2, 600):
+        for cap in (1, 2, 3, 7, 16, 64):
+            if n >= 2 * cap:
+                assert ransac.decimation_stride(n, cap) == \
+                    jax_decimation_stride(n, cap), (n, cap)
+    for n, cap in ((131072, 8192), (131072, 16384), (100352, 2048)):
+        assert ransac.decimation_stride(n, cap) == jax_decimation_stride(n, cap)
+
+
+def test_corr_subsample_replays_jax(prepared_4096):
+    """corr_mode='auto' on a source of 2·corr_cap rows: the strided subset,
+    its estimate stage and the JAX draws give the JAX winner."""
+    sd, td, sf, tf = prepared_4096
+    ts, tt, tsf, ttf = _to_torch(sd, td, sf, tf)
+    kw = dict(max_iterations=30000, corr_cap=2048, est_cap=512)
+    ref = jax_ransac(sd, td, sf, tf, VOXEL, **kw)
+    got = ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
+                                     draws=jax_draws(42), **kw)
+    np.testing.assert_allclose(got.transformation.numpy(),
+                               np.asarray(ref.transformation), atol=1e-5)
+    assert float(got.fitness) == float(ref.fitness)
+    np.testing.assert_allclose(float(got.rmse), float(ref.rmse), rtol=1e-5)
+    assert float(got.fitness) > 0.3
+    # 'exact' keeps every row: a different correspondence set.
+    exact = ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
+                                       corr_mode="exact", draws=jax_draws(42),
+                                       **kw)
+    assert float(exact.fitness) != float(got.fitness)
 
 
 def test_unported_routes_raise(prepared_4096):

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, on first use, into
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
+(all started together), then linked into one shared library with a plain
+C interface, on first use, into
 ``tpu3d_torch/_build/`` (git-ignored; the file name carries a hash of the
 sources, so an edited source is rebuilt). The library is loaded with
 ``ctypes``. Each C entry point launches on the stream it is given and
@@ -26,7 +27,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -39,6 +40,9 @@ SIGNATURES = {
     "tpu3d_nn_top1": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "tpu3d_ransac_score": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
     "tpu3d_icp_p2plane_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+    "tpu3d_moments_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+    "tpu3d_spfh_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "tpu3d_fpfh_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
 }
 
 
@@ -66,6 +70,20 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise on the first failure, else return
+    their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless a library for these sources exists;
     returns its path. ``verbose`` adds ``-Xptxas -v`` and prints the
@@ -74,20 +92,23 @@ def build(verbose: bool = False) -> Path:
     if lib.exists() and not verbose:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp]
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [os.path.join(objdir, p.stem + ".o") for p in _sources()]
+        report = _run_all([
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", obj]
+            + (["-Xptxas", "-v"] if verbose else [])
+            for src, obj in zip(_sources(), objs)
+        ])
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            _run_all([[nvcc, "-shared", *objs, "-o", tmp]])
+        except RuntimeError:
+            os.unlink(tmp)
+            raise
     if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += [str(p) for p in _sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr)
+        print(report)
     os.replace(tmp, lib)
     return lib
 

@@ -27,11 +27,11 @@ def to_numpy(state: NamedTuple) -> dict:
 
 
 def from_numpy(
-    cls: type[T], arrays: dict, device: torch.device | str = "cpu"
+    cls: type[T], arrays: dict, device: torch.device | str = "cuda"
 ) -> T:
     """Build ``cls`` from a dict (or NamedTuple) of numpy-like arrays,
-    placing every field on ``device``. Fields missing from ``arrays`` keep
-    the type's default."""
+    placing every field on ``device`` (the card unless the caller asks for
+    the CPU). Fields missing from ``arrays`` keep the type's default."""
     if hasattr(arrays, "_asdict"):
         arrays = arrays._asdict()
     fields = {}

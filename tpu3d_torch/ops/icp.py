@@ -25,6 +25,7 @@ import torch
 
 from tpu3d_torch.ops.icp_stats import icp_p2plane_stats, unpack_partials
 from tpu3d_torch.ops.nn import nearest_neighbor
+from tpu3d_torch.ops.ransac import decimation_stride
 from tpu3d_torch.ops.slab import SlabIndex, block_slices, build_slab
 from tpu3d_torch.ops.transforms import (
     euler_xyz_to_matrix,
@@ -39,8 +40,6 @@ BLOCK = 64
 # Targets of at least this many rows take the slab backend (K7); smaller
 # ones the brute backend (K5), as the JAX package's nn_mode='auto' picks.
 SLAB_MIN_TARGET = 4096
-# Sources of 2·SRC_CAP rows or more take the strided subset (not ported).
-SRC_CAP = 16384
 
 
 class IcpTargetIndex(NamedTuple):
@@ -219,6 +218,26 @@ class SlabStats:
         parts = icp_p2plane_stats(*self.kernel_args(T))
         return IcpStats(*unpack_partials(parts))
 
+def _metrics(s: IcpStats, n_valid: float, T: torch.Tensor):
+    """(T, n_corr / n_valid, rmse) from one stats pass at pose T."""
+    return RegistrationResult(
+        transformation=T,
+        fitness=s.n_corr / n_valid,
+        rmse=torch.where(
+            s.n_corr > 0,
+            torch.sqrt(s.sum_d2 / torch.clamp_min(s.n_corr, 1.0)),
+            0.0,
+        ),
+    )
+
+
+def _full_source_stats(index, src_pts, smask, T, thr) -> SlabStats:
+    """Slab stats over every source row, sorted by x at pose ``T``."""
+    key = torch.where(smask, transform_points(T, src_pts)[:, 0], 3e4)
+    skey, order = torch.sort(key, stable=True)
+    return SlabStats(index, src_pts[order], skey < 2.9e4, thr)
+
+
 def icp_refine(
     source: PointCloud,
     target: PointCloud,
@@ -226,10 +245,28 @@ def icp_refine(
     distance_threshold: float,
     max_iterations: int = 200,
     point_to_plane: bool = True,
+    target_index: IcpTargetIndex | None = None,
+    src_cap: int = 16384,
     src_mode: str = "auto",
+    final_metrics: str = "auto",
+    polish: str = "auto",
+    polish_iters: int = 8,
+    polish_threshold: float = 0.5,
 ) -> RegistrationResult:
     """Point-to-plane ICP from ``initial_transform``: the slab backend for
-    targets of ≥ ``SLAB_MIN_TARGET`` rows, brute below."""
+    targets of ≥ ``SLAB_MIN_TARGET`` rows (through ``target_index`` when
+    given), brute below.
+
+    ``src_mode`` 'auto'/'subsample' on the slab backend with a source of
+    ≥ 2·``src_cap`` rows iterates on the strided ``src_cap``-row subset
+    (``decimation_stride``); 'exact' always iterates every row. With the
+    subset, ``final_metrics`` says what the returned fitness/rmse are:
+    'auto' one more subset pass at the returned pose, 'exact' one
+    full-source pass there, 'estimate' the loop's own. ``polish`` 'auto'
+    then continues with up to ``polish_iters`` full-source iterations when
+    that fitness is below ``polish_threshold`` and reports exact metrics at
+    the polished pose: the JAX ``lax.cond`` becomes a host ``if`` on the
+    fitness, one more device→host read."""
     if not (point_to_plane and target.normals is not None):
         raise NotImplementedError(
             "point-to-point ICP is not ported yet "
@@ -238,23 +275,46 @@ def icp_refine(
     slab = target.capacity >= SLAB_MIN_TARGET
     src_pts = source.points.to(torch.float32)
     smask = source.mask
-    if (
+    src_full, smask_full = src_pts, smask
+    use_sub = (
         slab
         and src_mode in ("subsample", "auto")
-        and src_pts.shape[0] >= 2 * SRC_CAP
-    ):
-        raise NotImplementedError(
-            "the strided-subset ICP source (src_mode) is not ported yet "
-            "(ROADMAP.md queue 1, item 7: ICP)"
-        )
+        and src_pts.shape[0] >= 2 * src_cap
+    )
+    if use_sub:
+        stride = decimation_stride(src_pts.shape[0], src_cap)
+        src_pts = src_pts[: stride * src_cap : stride]
+        smask = smask[: stride * src_cap : stride]
     n_valid = max(float(smask.sum()), 1.0)
     T0 = initial_transform.to(torch.float32)
     if slab:
+        index = target_index if target_index is not None else (
+            build_icp_target(target))
         x0 = transform_points(T0, src_pts)[:, 0]
         _, order = torch.sort(torch.where(smask, x0, 3e4), stable=True)
-        stats = SlabStats(build_icp_target(target), src_pts[order],
-                          smask[order], distance_threshold)
+        stats = SlabStats(index, src_pts[order], smask[order],
+                          distance_threshold)
     else:
         stats = gathered_stats_fn(src_pts, smask, target.points, target.mask,
                                   target.normals, distance_threshold)
-    return icp_loop(stats, n_valid, T0, max_iterations)
+    res = icp_loop(stats, n_valid, T0, max_iterations)
+    if not use_sub:
+        return res
+
+    n_valid_full = max(float(smask_full.sum()), 1.0)
+    if final_metrics == "auto":
+        res = _metrics(stats(res.transformation), n_valid,
+                       res.transformation)
+    elif final_metrics == "exact":
+        full = _full_source_stats(index, src_full, smask_full,
+                                  res.transformation, distance_threshold)
+        res = _metrics(full(res.transformation), n_valid_full,
+                       res.transformation)
+    if (polish == "auto" and polish_iters > 0
+            and float(res.fitness) < polish_threshold):
+        full = _full_source_stats(index, src_full, smask_full,
+                                  res.transformation, distance_threshold)
+        r2 = icp_loop(full, n_valid_full, res.transformation, polish_iters)
+        res = _metrics(full(r2.transformation), n_valid_full,
+                       r2.transformation)
+    return res

@@ -54,6 +54,75 @@ def smallest_eigvec_3x3(A: torch.Tensor) -> torch.Tensor:
     return torch.where(vnorm > 1e-20, v / torch.clamp_min(vnorm, 1e-30), ez)
 
 
+def smallest_eigvec_3x3_planes_newton(a00, a01, a02, a11, a12, a22,
+                                      iters: int = 12):
+    """Trig-free smallest eigenvector of symmetric 3×3 matrices given as six
+    equally shaped component tensors; returns (vx, vy, vz).
+
+    Newton on the characteristic cubic β³ − 3β − det B = 0 of the scaled
+    deviatoric B = (A − qI)/p, from β = −2, clipped to [−2, −1], ``iters``
+    steps; then the spectral projector with λ₂+λ₃ and λ₂λ₃ from the traces,
+    and its column of largest norm (e_z when it vanishes). Sweep A's CUDA
+    epilogue (``csrc/features.cu``) repeats these operations in this
+    order, one rounding each."""
+    scale = a00.abs()
+    for c in (a01, a02, a11, a12, a22):
+        scale = torch.maximum(scale, c.abs())
+    scale = torch.clamp_min(scale, 1e-30)
+    a00, a01, a02 = a00 / scale, a01 / scale, a02 / scale
+    a11, a12, a22 = a11 / scale, a12 / scale, a22 / scale
+
+    q = (a00 + a11 + a22) / 3.0
+    p1 = a01 * a01 + a02 * a02 + a12 * a12
+    d00, d11, d22 = a00 - q, a11 - q, a22 - q
+    p2 = d00 * d00 + d11 * d11 + d22 * d22 + 2.0 * p1
+    p = torch.sqrt(torch.clamp_min(p2 / 6.0, 1e-30))
+    inv_p = 1.0 / p
+    b00, b11, b22 = d00 * inv_p, d11 * inv_p, d22 * inv_p
+    b01, b02, b12 = a01 * inv_p, a02 * inv_p, a12 * inv_p
+    detB = (
+        b00 * (b11 * b22 - b12 * b12)
+        - b01 * (b01 * b22 - b12 * b02)
+        + b02 * (b01 * b12 - b11 * b02)
+    )
+    d = torch.clamp(detB, -2.0, 2.0)
+    beta = torch.full_like(d, -2.0)
+    for _ in range(iters):
+        h = (beta * beta - 3.0) * beta - d
+        hp = 3.0 * beta * beta - 3.0
+        beta = torch.clamp(beta - h / torch.clamp_min(hp, 1e-12), -2.0, -1.0)
+    lam1 = q + p * beta
+
+    s = 3.0 * q - lam1
+    tra2 = (
+        a00 * a00 + a11 * a11 + a22 * a22
+        + 2.0 * (a01 * a01 + a02 * a02 + a12 * a12)
+    )
+    e2 = (9.0 * q * q - tra2) / 2.0
+    t = e2 - lam1 * s
+
+    P00 = a00 * a00 + a01 * a01 + a02 * a02 - s * a00 + t
+    P01 = a00 * a01 + a01 * a11 + a02 * a12 - s * a01
+    P02 = a00 * a02 + a01 * a12 + a02 * a22 - s * a02
+    P11 = a01 * a01 + a11 * a11 + a12 * a12 - s * a11 + t
+    P12 = a01 * a02 + a11 * a12 + a12 * a22 - s * a12
+    P22 = a02 * a02 + a12 * a12 + a22 * a22 - s * a22 + t
+
+    n0 = P00 * P00 + P01 * P01 + P02 * P02
+    n1 = P01 * P01 + P11 * P11 + P12 * P12
+    n2 = P02 * P02 + P12 * P12 + P22 * P22
+    m0 = (n0 >= n1) & (n0 >= n2)
+    m1 = n1 >= n2
+    vx = torch.where(m0, P00, torch.where(m1, P01, P02))
+    vy = torch.where(m0, P01, torch.where(m1, P11, P12))
+    vz = torch.where(m0, P02, torch.where(m1, P12, P22))
+    vn = torch.sqrt(vx * vx + vy * vy + vz * vz)
+    ok = vn > 1e-20
+    inv = 1.0 / torch.clamp_min(vn, 1e-30)
+    return (torch.where(ok, vx * inv, 0.0), torch.where(ok, vy * inv, 0.0),
+            torch.where(ok, vz * inv, 1.0))
+
+
 def estimate_normals(
     cloud: PointCloud,
     neighbors: tuple[torch.Tensor, torch.Tensor],

@@ -28,13 +28,6 @@ from tpu3d_torch.types import FPFHFeatures, PointCloud, RegistrationResult
 
 Draws = Callable[[int, int], tuple[int, int, int]]
 
-# The JAX package's defaults, which no caller changes: sources of
-# 2·CORR_CAP rows or more take the correspondence subsample (not ported),
-# and those of 2·EST_CAP rows or more the in-chunk estimate stage.
-CORR_CAP = 8192
-EST_CAP = 2048
-
-
 def hypothesis_chunk(max_iterations: int) -> int:
     """Hypotheses per chunk: a quarter of the budget, rounded up to 1,024,
     at least 16,384."""
@@ -179,15 +172,23 @@ def ransac_registration(
     confidence: float = 0.999,
     seed: int = 42,
     two_stage: str | bool = "auto",
+    corr_cap: int = 8192,
     corr_mode: str = "auto",
+    est_cap: int = 2048,
     draws: Draws | None = None,
 ) -> RegistrationResult:
     """Coarse pose: the best hypothesis in the prefix that ends at the first
     one whose fitness exceeds ``confidence``, with fitness/rmse rescored
     directly at the winner. Ports the chunked route with rotation sampling
-    and, for n ≥ 2·EST_CAP, the in-chunk estimate stage (every hypothesis
-    scored on a strided ``EST_CAP``-row subset, the top 32 rescored
-    exactly)."""
+    and, for n ≥ 2·``est_cap``, the in-chunk estimate stage (every
+    hypothesis scored on a strided ``est_cap``-row subset, the top 32
+    rescored exactly).
+
+    ``corr_mode`` 'auto' or 'subsample' with n ≥ 2·``corr_cap``: exact
+    correspondences for the strided ``corr_cap``-row subset of the source
+    (row k·stride, ``decimation_stride``), which the hypotheses are drawn
+    from and scored on; fitness normalises by the subset's valid count.
+    'exact' matches every source row."""
     device = source.points.device
     if draws is None:
         draws = torch_draws(seed)
@@ -195,8 +196,16 @@ def ransac_registration(
     thr2 = float((v32 * np.float32(1.5)) ** 2)  # strict < on err²
     n = source.capacity
     hyp_chunk = hypothesis_chunk(max_iterations)
-    if corr_mode in ("subsample", "auto") and n >= 2 * CORR_CAP:
-        raise _not_ported("correspondence subsampling (corr_mode)")
+    src_pts = source.points
+    src_mask = source.mask
+    src_desc = source_features.descriptors
+    if corr_mode in ("subsample", "auto") and n >= 2 * corr_cap:
+        stride = decimation_stride(n, corr_cap)
+        src_pts, src_mask, src_desc = (
+            x[: stride * corr_cap : stride]
+            for x in (src_pts, src_mask, src_desc)
+        )
+        n = corr_cap
     h_total = -(-max_iterations // 512) * 512
     if two_stage == "auto":
         two_stage = n >= 2 * 16384 and h_total > 4 * min(1024, h_total)
@@ -207,24 +216,23 @@ def ransac_registration(
     if not hyp_chunk >= n >= 2048:
         raise _not_ported("the gather sampler (below 2,048 rows)")
 
-    src_mask = source.mask
     n_valid = max(float(src_mask.sum()), 1.0)
     count = max(int(n_valid), 1)
     corr = feature_correspondences(
-        FPFHFeatures(source_features.descriptors, src_mask), target_features
+        FPFHFeatures(src_desc, src_mask), target_features
     )
-    p = source.points.to(torch.float32)
+    p = src_pts.to(torch.float32)
     q = target.points[corr.long()].to(torch.float32)
     feat_t, pq_norm = build_scoring_factors(p, q, src_mask)
     pq2p = build_rotation_table(torch.cat([p, q], dim=1), src_mask, count)
 
     cons = (hyp_chunk // n) * count + min(hyp_chunk % n, count)
     n_chunks_bound = (max_iterations + cons - 1) // max(cons, 1)
-    use_est = n >= 2 * EST_CAP
+    use_est = n >= 2 * est_cap
     if use_est:
-        m_e = strided_rows(src_mask, EST_CAP)
+        m_e = strided_rows(src_mask, est_cap)
         feat_e, pq_e = build_scoring_factors(
-            strided_rows(p, EST_CAP), strided_rows(q, EST_CAP), m_e)
+            strided_rows(p, est_cap), strided_rows(q, est_cap), m_e)
         n_valid_e = max(float(m_e.sum()), 1.0)
         k_fin = min(32, hyp_chunk)
     h_ids = torch.arange(hyp_chunk, device=device)

@@ -1,12 +1,20 @@
 """High-level registration API: ``register_pair(source, target, config)``.
 
-Counterpart of ``tpu3d/registration.py`` on its reference-parity route:
-voxel downsample → capacity bucket → brute self-kNN (k=100) shared by
-k=30 normals and radius-capped FPFH → RANSAC (K5 correspondences, K6
-scoring) → point-to-plane ICP (K7, or K5 below 4,096 target rows). The
-route holds for pairs whose downsampled clouds stay below
-``FUSED_CAPACITY_THRESHOLD``; the routes not ported yet raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+Counterpart of ``tpu3d/registration.py``. Two routes, chosen once per pair
+from the downsampled capacities:
+
+  * reference parity (both below ``FUSED_CAPACITY_THRESHOLD``): brute
+    self-kNN (k=100) shared by k=30 normals and radius-capped FPFH;
+  * at scale: the fused prepare (``ops/fused_features``, K2-K4). When the
+    source lies on a CUDA device (or ``prepare_mode='sparse'``), the target
+    gets the dense prepare and the source the sparse one, RANSAC runs on
+    the sparse subset view and ICP on a strided source subset, with one
+    escalation through the dense arm when the refined fitness falls below
+    ``min_fitness`` (``sparse_register_escalated``).
+
+RANSAC uses K5 correspondences and K6 scoring, ICP K7 (K5 below 4,096
+target rows). ``mesh`` is not ported and raises ``NotImplementedError``
+naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -16,7 +24,12 @@ from typing import Optional
 import numpy as np
 
 from tpu3d_torch.config import RegistrationConfig
+from tpu3d_torch.device import launches_kernel
 from tpu3d_torch.ops.fpfh import compute_fpfh
+from tpu3d_torch.ops.fused_features import (
+    fused_prepare_features,
+    fused_prepare_sparse,
+)
 from tpu3d_torch.ops.icp import icp_refine
 from tpu3d_torch.ops.neighbors import knn
 from tpu3d_torch.ops.normals import estimate_normals
@@ -66,26 +79,36 @@ def surface_neighbors(cloud: PointCloud, k: int = 100):
     return knn(cloud.points, cloud.points, cloud.mask, k=k)
 
 
+def prepare_cloud(
+    cloud: PointCloud,
+    config: RegistrationConfig,
+    capacity: Optional[int] = None,
+    neighbor_mode: str = "auto",
+) -> tuple[PointCloud, FPFHFeatures]:
+    """Downsample + normals + FPFH (FPFH radius = 5 × voxel_size). When
+    registering a pair, resolve ``neighbor_mode`` once for both clouds
+    (``resolve_neighbor_mode``), as ``register_pair`` does."""
+    down = downsample_bucketed(cloud, config, capacity)
+    return prepare_features(down, config, neighbor_mode)
+
+
 def prepare_features(
     down: PointCloud,
     config: RegistrationConfig,
     neighbor_mode: str = "auto",
 ) -> tuple[PointCloud, FPFHFeatures]:
-    """Normals + FPFH on a downsampled, compacted cloud (gather route)."""
+    """Normals + FPFH on a downsampled, compacted cloud: the fused sweeps
+    at scale (or with ``neighbor_mode='fused'``), else the gather route."""
+    radius = float(np.float32(config.voxel_size * 5.0))
     if neighbor_mode == "fused" or (
         neighbor_mode == "auto" and down.capacity >= FUSED_CAPACITY_THRESHOLD
     ):
-        raise NotImplementedError(
-            "the fused prepare route (capacity >= "
-            f"{FUSED_CAPACITY_THRESHOLD}, kernels K2-K4) is not ported yet "
-            "(ROADMAP.md queue 1, item 4: fused prepare)"
-        )
+        return fused_prepare_features(down, radius)
     if neighbor_mode != "auto":
         raise NotImplementedError(
             f"neighbor_mode={neighbor_mode!r} is not ported yet "
             "(ROADMAP.md queue 1, item 10: gather path for small clouds)"
         )
-    radius = float(np.float32(config.voxel_size * 5.0))
     nbrs = surface_neighbors(down, k=100)
     down = estimate_normals(down, nbrs, k=30)
     return down, compute_fpfh(down, radius, nbrs)
@@ -101,7 +124,7 @@ def register_prepared(
 ) -> tuple[RegistrationResult, RegistrationResult]:
     """RANSAC + ICP on prepared clouds. Returns (refined, coarse).
     ``draws`` replaces the RANSAC draw stream (see ops/ransac.py)."""
-    two_stage = {"on": True, "off": False}.get(config.two_stage, "auto")
+    two_stage = _two_stage(config.two_stage)
     coarse = ransac_registration(
         source,
         target,
@@ -127,6 +150,92 @@ def register_prepared(
     return refined, coarse
 
 
+def _two_stage(v):
+    """Config 'auto'|'on'|'off' (or a bool) → ransac_registration's
+    two_stage."""
+    if isinstance(v, str):
+        return {"on": True, "off": False}.get(v, "auto")
+    return v
+
+
+def sparse_prepare_active(
+    config: RegistrationConfig, neighbor_mode: str, source: PointCloud
+) -> bool:
+    """Should the source take the sparse query-subset prepare? 'sparse'
+    forces it; 'auto' enables it on the fused route with corr_mode='auto'
+    (which subsamples to the same 8,192 rows), a source of at least twice
+    that, lying on a CUDA device."""
+    if config.prepare_mode == "sparse":
+        return True
+    return (
+        config.prepare_mode == "auto"
+        and neighbor_mode == "fused"
+        and config.corr_mode == "auto"
+        and source.capacity >= 2 * 8192
+        and launches_kernel(source.points)
+    )
+
+
+def sparse_register_escalated(
+    src_down: PointCloud,
+    tgt_down: PointCloud,
+    tgt_feat: FPFHFeatures,
+    *,
+    voxel: float,
+    radius: float,
+    corr_cap: int = 8192,
+    est_cap: int = 2048,
+    src_cap: int = 16384,
+    max_iterations: int = 100000,
+    confidence: float = 0.999,
+    seed: int = 42,
+    icp_distance_factor: float = 0.4,
+    icp_max_iterations: int = 200,
+    point_to_plane: bool = True,
+    two_stage="auto",
+    src_mode: str = "auto",
+    escalate_below: float = 0.3,
+    draws: Draws | None = None,
+) -> tuple[RegistrationResult, RegistrationResult, bool]:
+    """The sparse-prepare arm: source descriptors only for the
+    correspondence subset (``fused_prepare_sparse``), RANSAC on the subset
+    view with corr_mode='exact', ICP from the downsampled source. When the
+    refined fitness is below ``escalate_below``, the coarse and fine stages
+    re-run through the dense-prepare corr_mode='auto' arm and the better
+    fitness wins. Returns (refined, coarse, escalated); ``draws`` feeds
+    both RANSAC runs."""
+    ts = _two_stage(two_stage)
+    sub_c, sub_f, _ = fused_prepare_sparse(src_down, radius,
+                                           corr_cap=corr_cap)
+    coarse = ransac_registration(
+        sub_c, tgt_down, sub_f, tgt_feat, voxel,
+        max_iterations=max_iterations, confidence=confidence, seed=seed,
+        corr_mode="exact", est_cap=est_cap, two_stage=ts, draws=draws,
+    )
+    refined = icp_refine(
+        src_down, tgt_down, coarse.transformation,
+        voxel * icp_distance_factor, max_iterations=icp_max_iterations,
+        point_to_plane=point_to_plane, src_mode=src_mode, src_cap=src_cap,
+    )
+    if escalate_below > 0 and float(refined.fitness) < escalate_below:
+        src_full, src_feat = fused_prepare_features(src_down, radius)
+        coarse2 = ransac_registration(
+            src_full, tgt_down, src_feat, tgt_feat, voxel,
+            max_iterations=max_iterations, confidence=confidence, seed=seed,
+            corr_mode="auto", corr_cap=corr_cap, est_cap=est_cap,
+            two_stage=ts, draws=draws,
+        )
+        refined2 = icp_refine(
+            src_full, tgt_down, coarse2.transformation,
+            voxel * icp_distance_factor, max_iterations=icp_max_iterations,
+            point_to_plane=point_to_plane, src_mode=src_mode,
+            src_cap=src_cap,
+        )
+        if float(refined2.fitness) > float(refined.fitness):
+            return refined2, coarse2, True
+    return refined, coarse, False
+
+
 def register_pair(
     source: PointCloud,
     target: PointCloud,
@@ -144,14 +253,31 @@ def register_pair(
             "multi-device registration (mesh) is not ported yet "
             "(ROADMAP.md queue 1, item 16: multi-GPU)"
         )
-    if config.prepare_mode == "sparse":
-        raise NotImplementedError(
-            "prepare_mode='sparse' is not ported yet "
-            "(ROADMAP.md queue 1, item 4: fused prepare, sparse arm)"
-        )
     src_down = downsample_bucketed(source, config)
     tgt_down = downsample_bucketed(target, config)
+    # One descriptor variant for both clouds of the pair.
     mode = resolve_neighbor_mode(src_down.capacity, tgt_down.capacity)
+    if sparse_prepare_active(config, mode, src_down):
+        esc = config.sparse_escalate_fitness
+        if esc == "auto":
+            esc = config.min_fitness
+        tgt_down, tgt_feat = prepare_features(tgt_down, config, "fused")
+        refined, coarse, _ = sparse_register_escalated(
+            src_down, tgt_down, tgt_feat,
+            voxel=config.voxel_size,
+            radius=float(np.float32(config.voxel_size * 5.0)),
+            max_iterations=config.ransac_max_iterations,
+            confidence=config.ransac_confidence,
+            seed=config.ransac_seed,
+            icp_distance_factor=config.icp_distance_factor,
+            icp_max_iterations=config.icp_max_iterations,
+            point_to_plane=config.use_point_to_plane,
+            two_stage=config.two_stage,
+            src_mode=config.src_mode,
+            escalate_below=float(esc),
+            draws=draws,
+        )
+        return refined, coarse
     src_down, src_feat = prepare_features(src_down, config, mode)
     tgt_down, tgt_feat = prepare_features(tgt_down, config, mode)
     return register_prepared(src_down, tgt_down, src_feat, tgt_feat, config,

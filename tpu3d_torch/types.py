@@ -46,11 +46,12 @@ class PointCloud(NamedTuple):
         normals: Optional[np.ndarray] = None,
         colors: Optional[np.ndarray] = None,
         capacity: Optional[int] = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "PointCloud":
         """Pack a dense (n, 3) array into a fixed-capacity cloud on
-        ``device``; ``capacity`` defaults to the next multiple of 128, as in
-        the JAX package."""
+        ``device`` (the card unless the caller asks for the CPU);
+        ``capacity`` defaults to the next multiple of 128, as in the JAX
+        package."""
         points = np.asarray(points, dtype=np.float32).reshape(-1, 3)
         n = points.shape[0]
         if capacity is None:
