@@ -143,3 +143,6 @@ def test_sweeps_check_shapes():
     with pytest.raises(ValueError, match="q8"):
         features.fpfh_sweep(q8[:, :200], torch.zeros((36, 200)), lo, lo, R2,
                             128)
+    with pytest.raises(ValueError, match="power of two"):
+        features.moments_sweep(q8[:, :192], torch.zeros((3, 192)), lo, lo,
+                               R2, 96)

@@ -102,6 +102,8 @@ def _groups(packed, lo, ln, block):
 
 
 def _check(name, q8, packed, lo, ln, block, rows):
+    if block < 1 or block & (block - 1):
+        raise ValueError(f"{name}: block must be a power of two, got {block}")
     mp = q8.shape[1]
     if q8.ndim != 2 or q8.shape[0] != 8 or mp % block:
         raise ValueError(f"{name}: q8 must be (8, Mp) with Mp % block == 0")
