@@ -19,8 +19,10 @@ Phases, each fatal on failure:
   4. the at-scale route (``make_pair(100352)``, voxel 0.002, every other
      field of RegistrationConfig at its default: bucket 131,072, the sparse
      arm, 100,000 hypotheses, ICP <= 200 iterations):
-     a. K2, K3 and K4 against their plain versions on the target's dense
-        operands (block 128), each fed the kernel chain's inputs;
+     a. K2, K3 and K4 against their plain versions on both operand sets
+        the main path gives them: the target's dense layout (block 128)
+        and the source's sparse one (block 256, the member sets' pruned
+        windows), each sweep fed the kernel chain's inputs;
      b. the sparse prepare of the source against the dense prepare at
         block 256, bit for bit on every retained row;
      c. K5, K6 and K7 against their plain versions at this route's shapes,
@@ -347,8 +349,27 @@ def reference_route(torch, np, dev):
     return k5, k6, k7, route
 
 
-def sweep_phase(torch, features, name, fn, plain, args, block, q8, entry,
-                per_neighbour, out_check):
+def sweep_bytes(torch, q_rows, packed, lo, ln, block, out_values,
+                every_query):
+    """Bytes a prepare sweep must move: the ``q_rows`` query planes it
+    reads (on every block when ``every_query``, else on blocks with a live
+    window), the candidate planes' columns that some window covers, the
+    window tables, and the ``out_values`` per row it returns."""
+    nbk, mp = lo.shape[0], packed.shape[1]
+    live = ln > 0
+    q_blocks = nbk if every_query else int(live.any(1).sum())
+    ones = torch.ones(int(live.sum()), dtype=torch.int64, device=lo.device)
+    diff = torch.zeros(mp + 1, dtype=torch.int64, device=lo.device)
+    diff.index_add_(0, lo[live].long(), ones)
+    diff.index_add_(0, (lo + ln)[live].long(), -ones)
+    covered = int((diff.cumsum(0)[:mp] > 0).sum())
+    return 4 * (q_rows * q_blocks * block + packed.shape[0] * covered
+                + out_values * mp) + nbytes(lo, ln)
+
+
+def sweep_phase(torch, name, fn, plain, args, block, q8, entry, sfx,
+                per_neighbour, q_rows, out_values, out_check,
+                every_query=False):
     """One prepare sweep's kernel against its plain version."""
     ko = fn(*args, block)
     po = plain(*args, block)
@@ -358,18 +379,89 @@ def sweep_phase(torch, features, name, fn, plain, args, block, q8, entry,
     lo, ln = args[2], args[3]
     valid_b = (q8[3] > 0.5).reshape(-1, block).sum(1)
     pairs = int((valid_b * ln.sum(1)).sum())
-    b_ms, b_by = bound(8.0 * pairs + per_neighbour * neighbours,
-                       nbytes(args[0], args[1], lo, ln, ko))
+    b_ms, b_by = bound(
+        8.0 * pairs + per_neighbour * neighbours,
+        sweep_bytes(torch, q_rows, args[1], lo, ln, block, out_values,
+                    every_query))
     entry.update({
-        "max_abs_err": err, "pairs": pairs, "neighbours": neighbours,
-        "ms": cuda_ms(torch, lambda: fn(*args, block)),
-        "plain_ms": cuda_ms(torch, lambda: plain(*args, block)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        f"max_abs_err{sfx}": err, f"pairs{sfx}": pairs,
+        f"neighbours{sfx}": neighbours,
+        f"ms{sfx}": cuda_ms(torch, lambda: fn(*args, block)),
+        f"plain_ms{sfx}": cuda_ms(torch, lambda: plain(*args, block)),
+        f"bound_ms{sfx}": b_ms, f"bound_by{sfx}": b_by,
+        f"library_ms{sfx}": None,
     })
-    log(f"{name}: max abs err {err:.3e}, {pairs} pairs, {neighbours} "
-        f"neighbours, kernel {entry['ms']:.4f} ms, plain "
-        f"{entry['plain_ms']:.4f} ms")
+    log(f"{name}{sfx}: max abs err {err:.3e}, {pairs} pairs, {neighbours} "
+        f"neighbours, kernel {entry['ms' + sfx]:.4f} ms, plain "
+        f"{entry['plain_ms' + sfx]:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
     return ko
+
+
+def prepare_sweeps(torch, features, fused_features, al, lo, lens, block, r2,
+                   entries, sfx):
+    """K2, K3 and K4 against their plain versions on one aligned layout with
+    windows ``lens`` (sweeps A, B, C), each fed the kernel chain's inputs."""
+    len_a, len_b, len_c = lens
+    e2, e3, e4 = entries
+    q8 = fused_features.moments_operands(al)
+    mp = q8.shape[1]
+    log(f"layout{sfx}: Mp {mp}, {mp // block} blocks of {block}; live "
+        f"blocks A/B/C {[int((x > 0).any(1).sum()) for x in lens]}; window "
+        f"rows mean {float(len_a.sum(1).float().mean()):.1f} max "
+        f"{int(len_a.sum(1).max())}")
+
+    def k2_check(ko, po):
+        check(torch.equal(ko[3], po[3]), f"K2{sfx} counts differ")
+        well = (po[3] >= 3) & (q8[3] > 0.5)
+        cos = (ko[:3] * po[:3]).sum(0).abs()[well]
+        log(f"K2{sfx}: normals |cos| min {float(cos.min()):.7f} on "
+            f"{int(well.sum())} rows")
+        check(int(well.sum()) > 0 and float(cos.min()) >= 0.9999,
+              f"K2{sfx} normals disagree")
+        return int(po[3][q8[3] > 0.5].sum())
+
+    # K2 reads xyz and validity and returns the normal and the count.
+    nrm8 = sweep_phase(torch, "K2", features.moments_sweep,
+                       features.moments_sweep_plain,
+                       (q8, al.padded_points_t, lo, len_a, r2), block, q8, e2,
+                       sfx, 18.0, 4, 4, k2_check, every_query=True)
+    q8n, pb = fused_features.spfh_operands(al, nrm8)
+
+    def k3_check(ko, po):
+        check(torch.equal(ko[33], po[33]), f"K3{sfx} counts differ")
+        live = po[33] > 0
+        differ = live & ~(ko[:33] == po[:33]).all(0)
+        frac = 1.0 - float(differ.sum()) / max(int(live.sum()), 1)
+        ids = differ.nonzero()[:, 0].tolist()
+        e3["rows_identical" + sfx] = frac
+        e3["rows_differing" + sfx] = len(ids)
+        e3["differing_rows" + sfx] = ids[:20]
+        log(f"K3{sfx}: histograms identical on {frac:.6f} of "
+            f"{int(live.sum())} rows; {len(ids)} differing rows (padded-row "
+            f"ids) {ids[:20]}")
+        check(int(live.sum()) > 0 and frac >= 0.999,
+              f"K3{sfx} histograms disagree")
+        return int(po[33][q8n[3] > 0.5].sum())
+
+    # K3 reads centred xyz, validity and the normal; returns 33 bins and the
+    # count.
+    spfh40 = sweep_phase(torch, "K3", features.spfh_sweep,
+                         features.spfh_sweep_plain, (q8n, pb, lo, len_b, r2),
+                         block, q8n, e3, sfx, 100.0, 7, 34, k3_check)
+    pc = fused_features.fpfh_operands(al, spfh40)
+
+    def k4_check(ko, po):
+        check(torch.allclose(ko, po, rtol=1e-4, atol=1e-6),
+              f"K4{sfx} disagrees")
+        # Its neighbours are sweep B's (the same radius test on raw rather
+        # than centred coordinates) on the blocks its own windows serve.
+        rows = (q8[3] > 0.5) & (len_c > 0).any(1).repeat_interleave(block)
+        return int(spfh40[33][rows].sum())
+
+    # K4 reads raw xyz and returns 33 weighted sums.
+    sweep_phase(torch, "K4", features.fpfh_sweep, features.fpfh_sweep_plain,
+                (q8, pc, lo, len_c, r2), block, q8, e4, sfx, 69.0, 3, 33,
+                k4_check)
 
 
 def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7):
@@ -404,72 +496,27 @@ def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7):
     radius = float(np.float32(voxel * 5.0))
     r2 = float(np.float32(radius) * np.float32(radius))
 
-    # --- a. K2, K3, K4 on the target's dense operands ---------------------
-    block = 128
-    al, lo, ln = fused_features.aligned_layout(td, radius, block)
-    q8 = fused_features.moments_operands(al)
-    mp = q8.shape[1]
-    log(f"dense layout: Mp {mp}, {mp // block} blocks, window rows mean "
-        f"{float(ln.sum(1).float().mean()):.1f} max {int(ln.sum(1).max())}")
-    sweeps = []
-
-    def k2_check(ko, po):
-        check(torch.equal(ko[3], po[3]), "K2 counts differ")
-        well = (po[3] >= 3) & (q8[3] > 0.5)
-        cos = (ko[:3] * po[:3]).sum(0).abs()[well]
-        log(f"K2: normals |cos| min {float(cos.min()):.7f} on "
-            f"{int(well.sum())} rows")
-        check(float(cos.min()) >= 0.9999, "K2 normals disagree")
-        return int(po[3][q8[3] > 0.5].sum())
-
+    # --- a. K2, K3, K4 on both layouts the main path gives them -----------
     e2 = {"name": "moments_sweep (K2, with the K1 walk)", "route": "cuda",
           "source": "tpu3d_torch/csrc/features.cu",
           "replaces": "tpu3d/ops/features_pallas.py:200"}
-    nrm8 = sweep_phase(torch, features, "K2", features.moments_sweep,
-                       features.moments_sweep_plain,
-                       (q8, al.padded_points_t, lo, ln, r2), block, q8, e2,
-                       18.0, k2_check)
-    sweeps.append((e2, features.moments_sweep))
-
-    q8n, pb = fused_features.spfh_operands(al, nrm8)
-
-    def k3_check(ko, po):
-        check(torch.equal(ko[33], po[33]), "K3 counts differ")
-        live = po[33] > 0
-        differ = live & ~(ko[:33] == po[:33]).all(0)
-        frac = 1.0 - float(differ.sum()) / max(int(live.sum()), 1)
-        ids = differ.nonzero()[:, 0].tolist()
-        e3["rows_identical"] = frac
-        e3["rows_differing"] = len(ids)
-        e3["differing_rows"] = ids[:20]
-        log(f"K3: histograms identical on {frac:.6f} of {int(live.sum())} "
-            f"rows; {len(ids)} differing rows (padded-row ids) {ids[:20]}")
-        check(frac >= 0.999, "K3 histograms disagree")
-        return int(po[33][q8n[3] > 0.5].sum())
-
     e3 = {"name": "spfh_sweep (K3, with the K1 walk)", "route": "cuda",
           "source": "tpu3d_torch/csrc/features.cu",
           "replaces": "tpu3d/ops/features_pallas.py:346"}
-    spfh40 = sweep_phase(torch, features, "K3", features.spfh_sweep,
-                         features.spfh_sweep_plain, (q8n, pb, lo, ln, r2),
-                         block, q8n, e3, 100.0, k3_check)
-    sweeps.append((e3, features.spfh_sweep))
-
-    pc = fused_features.fpfh_operands(al, spfh40)
-
-    def k4_check(ko, po):
-        check(torch.allclose(ko, po, rtol=1e-4, atol=1e-6), "K4 disagrees")
-        # Its neighbours are sweep B's (the same radius test on raw
-        # rather than centred coordinates).
-        return int(spfh40[33][q8[3] > 0.5].sum())
-
     e4 = {"name": "fpfh_sweep (K4, with the K1 walk)", "route": "cuda",
           "source": "tpu3d_torch/csrc/features.cu",
           "replaces": "tpu3d/ops/features_pallas.py:390"}
-    sweep_phase(torch, features, "K4", features.fpfh_sweep,
-                features.fpfh_sweep_plain, (q8, pc, lo, ln, r2), block, q8,
-                e4, 69.0, k4_check)
-    sweeps.append((e4, features.fpfh_sweep))
+    sweeps = [(e2, features.moments_sweep), (e3, features.spfh_sweep),
+              (e4, features.fpfh_sweep)]
+    # The target's dense prepare: every window, block 128.
+    al, lo, ln = fused_features.aligned_layout(td, radius, 128)
+    prepare_sweeps(torch, features, fused_features, al, lo, (ln, ln, ln),
+                   128, r2, (e2, e3, e4), "")
+    # The source's sparse prepare: block 256, the member sets' windows.
+    al, lo, ln = fused_features.aligned_layout(sd, radius, 256)
+    lens = fused_features.member_lengths(lo, ln, 256, 8192 // 256)[:3]
+    prepare_sweeps(torch, features, fused_features, al, lo, lens, 256, r2,
+                   (e2, e3, e4), "_sparse256")
 
     # --- b. sparse equals dense on the source, block 256 -------------------
     _, dense_f = fused_features.fused_prepare_features(sd, radius, block=256)

@@ -143,6 +143,9 @@ def test_sweeps_check_shapes():
     with pytest.raises(ValueError, match="q8"):
         features.fpfh_sweep(q8[:, :200], torch.zeros((36, 200)), lo, lo, R2,
                             128)
-    with pytest.raises(ValueError, match="power of two"):
+    with pytest.raises(ValueError, match="128 or 256"):
         features.moments_sweep(q8[:, :192], torch.zeros((3, 192)), lo, lo,
                                R2, 96)
+    # A power of two the kernels do not take: the plain path refuses it too.
+    with pytest.raises(ValueError, match="128 or 256"):
+        features.moments_sweep(q8, torch.zeros((3, 256)), lo, lo, R2, 64)

@@ -102,8 +102,10 @@ def _groups(packed, lo, ln, block):
 
 
 def _check(name, q8, packed, lo, ln, block, rows):
-    if block < 1 or block & (block - 1):
-        raise ValueError(f"{name}: block must be a power of two, got {block}")
+    # The kernels run one thread per query row; both paths take the same
+    # blocks so that they accept the same inputs.
+    if block not in (128, 256):
+        raise ValueError(f"{name}: block must be 128 or 256, got {block}")
     mp = q8.shape[1]
     if q8.ndim != 2 or q8.shape[0] != 8 or mp % block:
         raise ValueError(f"{name}: q8 must be (8, Mp) with Mp % block == 0")
@@ -115,8 +117,6 @@ def _check(name, q8, packed, lo, ln, block, rows):
 
 
 def _launch(fn_name, q8, packed, lo, ln, r2, block, out, *extra):
-    if block not in (128, 256):
-        raise ValueError(f"{fn_name}: block must be 128 or 256, got {block}")
     fins = [x.contiguous() for x in (q8, packed)]
     if any(x.dtype != torch.float32 for x in fins):
         raise TypeError(f"{fn_name} takes float32 planes")
