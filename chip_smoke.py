@@ -30,11 +30,33 @@ Phases, each fatal on failure:
      d. ``tpu3d_torch.register_pair``: all six launch counts > 0 in that
         run, the quality gate, the escalation flag, warm pairs, a stage
         breakdown, peak device memory and one pair's device-busy time
-        (torch.profiler).
+        (torch.profiler);
+  5. the pipeline (``tpu3d_torch.pipeline.Pipeline``) on 1280 x 720 frames:
+     a. K9 (the bilateral filter) against its plain version on the bin
+        frame (``models/fixtures.bin_frame``) masked to one instance, at
+        r = 4 (sigma_s 2.0) and r = 5 (sigma_s 3.0), and on the whole
+        frame: equal zero sets, max abs error <= 1e-6 m;
+     b. the CLI demo: ``tpu3d_torch.__main__.main`` on a copy of
+        config/pipeline_config.yaml with ``bilateral_filter: true`` and
+        ``visualization: "none"`` (the procedural scene, voxel 1 mm,
+        100,000 hypotheses, ICP <= 200 iterations): rc 0, one waypoint,
+        no error branch or host ICP retry, K9 launched;
+     c. ``Pipeline.run()`` on the bin frame at voxel 0.002 with the
+        bilateral filter on, fed from files: the frame as dummy-data
+        PNGs, four mask PNGs, three of 320 px (one capacity bucket: a
+        batched group on the sparse arm) and one of 74 px (bucket 1,024:
+        the gather sampler), and the reference model, the deprojected
+        frame written with ``save_ply`` (fused mode). Every instance gets
+        a pose, no error branch or host ICP retry runs, all four pass the
+        quality gate against the identity, and K2-K7 and K9 all launch;
+        reported: the stage breakdown (wrappers around the pipeline's own
+        functions), cold and warm run times, peak device memory and one
+        run's device-busy time.
   Kernel and plain times are CUDA events, 2 warm runs, median of 5.
   ``bound_ms`` is the larger of this run's operations over 67 TFLOP/s
   (fp32 without tensor cores) and its bytes (each input read once, each
-  output written once) over 3.35 TB/s, an H100 SXM's peaks.
+  output written once) over 3.35 TB/s, an H100 SXM's peaks; K9 also
+  reports the floor its expf calls set on the special-function units.
   ``--points``/``--voxel`` shrink phase 4 for a rehearsal off the card.
 
 Output: progress on stderr; on stdout the nvidia-smi line, a JSON line of
@@ -47,6 +69,7 @@ when any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -257,7 +280,7 @@ def icp_phase(torch, icp, icp_stats, index, src_pts, smask, T, thr, suffix,
 def reference_route(torch, np, dev):
     """Phase 3: bucket 8,192, the reference-parity route."""
     import tpu3d_torch
-    from bench import make_pair
+    from tpu3d_torch.models.fixtures import make_pair
     from tpu3d_torch.ops import icp, icp_stats, nn, ransac, ransac_score
     from tpu3d_torch.registration import downsample_bucketed, prepare_features
 
@@ -339,7 +362,7 @@ def reference_route(torch, np, dev):
         max_iterations=cfg.icp_max_iterations))
     route = {
         "route": "reference parity", "main_path": "tpu3d_torch.register_pair",
-        "fixture": f"bench.make_pair({N_POINTS}, voxel={VOXEL})",
+        "fixture": f"make_pair({N_POINTS}, voxel={VOXEL})",
         "bucket": sd.capacity, "pair_ms": times,
         "pair_ms_median": statistics.median(times), "stages_ms": stage.ms,
         "fitness": float(refined.fitness),
@@ -467,8 +490,8 @@ def prepare_sweeps(torch, features, fused_features, al, lo, lens, block, r2,
 def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7):
     """Phase 4: the at-scale route (sparse arm)."""
     import tpu3d_torch
-    from bench import make_pair
     from tpu3d_torch import registration as reg
+    from tpu3d_torch.models.fixtures import make_pair
     from tpu3d_torch.ops import (
         features,
         fused_features,
@@ -611,7 +634,7 @@ def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7):
     route = {
         "route": "at scale (sparse arm)",
         "main_path": "tpu3d_torch.register_pair",
-        "fixture": f"bench.make_pair({n_points}), voxel {voxel}",
+        "fixture": f"make_pair({n_points}), voxel {voxel}",
         "bucket": bucket, "capacity": [sd.capacity, td.capacity],
         "rows": [sd.count(), td.count()],
         "escalated": bool(escalated), "pair_ms": times,
@@ -639,6 +662,327 @@ def device_busy_ms(torch, fn):
     return total / 1e3
 
 
+def bin_masks(np, width, height):
+    """The bin frame's four instance masks (u8, 255 inside): at 1280 x 720,
+    three squares of 320 px, which share one capacity bucket (a batched
+    group on the sparse arm), and one of 74 px on a bump-rich patch that
+    registers (~790 rows, bucket 1,024: the gather sampler)."""
+    big, small = width // 4, width * 37 // 640
+    boxes = [(width // 32, height // 18, big),
+             (3 * width // 8, height // 2, big),
+             (45 * width // 64, height // 12, big),
+             (width * 579 // 640, height * 67 // 80, small)]
+    masks = []
+    for x0, y0, side in boxes:
+        m = np.zeros((height, width), np.uint8)
+        m[y0:y0 + side, x0:x0 + side] = 255
+        masks.append(m)
+    return masks
+
+
+def k9_phase(torch, depth, depth_m, sigma_s, sfx, entry):
+    """K9 against its plain version on one masked frame (5a)."""
+    ko = depth.bilateral_filter(depth_m, sigma_s, 0.05)
+    po = depth.bilateral_filter_plain(depth_m, sigma_s, 0.05)
+    torch.cuda.synchronize()
+    err = float((ko - po).abs().max())
+    zeros_equal = torch.equal(ko == 0, po == 0)
+    # The work this frame needs: one tap (~8 operations and one expf) for
+    # every non-zero neighbour of every non-zero centre.
+    r = depth.bf_radius(sigma_s)
+    h, w = depth_m.shape
+    nz = torch.nn.functional.pad((depth_m > 0).to(torch.int32), (r, r, r, r))
+    nbrs = sum(nz[dy:dy + h, dx:dx + w]
+               for dy in range(2 * r + 1) for dx in range(2 * r + 1))
+    taps = int(nbrs[depth_m > 0].sum())
+    b_ms, b_by = bound(8.0 * taps, 2 * 4 * h * w)
+    # expf on the special-function units: 16 per clock per SM, 132 SMs at
+    # the 1.98 GHz boost clock.
+    sfu_ms = taps / (16 * 132 * 1.98e9) * 1e3
+    entry.update({
+        f"max_abs_err{sfx}": err, f"radius{sfx}": r, f"taps{sfx}": taps,
+        f"ms{sfx}": cuda_ms(
+            torch, lambda: depth.bilateral_filter(depth_m, sigma_s, 0.05)),
+        f"plain_ms{sfx}": cuda_ms(
+            torch, lambda: depth.bilateral_filter_plain(depth_m, sigma_s,
+                                                        0.05)),
+        f"bound_ms{sfx}": b_ms, f"bound_by{sfx}": b_by,
+        f"sfu_floor_ms{sfx}": sfu_ms, f"library_ms{sfx}": None,
+    })
+    log(f"K9{sfx} {h}x{w} r={r}: {taps} taps, max abs err {err:.3e}, zero "
+        f"sets equal {zeros_equal}, kernel {entry['ms' + sfx]:.4f} ms, plain "
+        f"{entry['plain_ms' + sfx]:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+        f"expf floor {sfu_ms:.5f} ms")
+    check(zeros_equal and err <= 1e-6, f"K9{sfx} disagrees: {err}")
+
+
+def launch_counts(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def reset_counts(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def cli_demo(torch, counters, tmp):
+    """5b: ``python -m tpu3d_torch`` on the repository's config with the
+    bilateral filter on and no viewer."""
+    import tpu3d_torch.__main__ as cli
+
+    with open(os.path.join(REPO, "config", "pipeline_config.yaml")) as f:
+        text = f.read()
+    for old, new in (("bilateral_filter: false", "bilateral_filter: true"),
+                     ('visualization: "opengl"', 'visualization: "none"')):
+        check(text.count(old) == 1, f"config has no single '{old}'")
+        text = text.replace(old, new)
+    path = os.path.join(tmp, "pipeline_config.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+
+    made = []
+
+    class Recorded(cli.Pipeline):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    saved, cli.Pipeline = cli.Pipeline, Recorded
+    reset_counts(counters)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = cli.main([path])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        cli.Pipeline = saved
+    launches = launch_counts(counters)
+    pipe = made[0] if made else None
+    log(f"CLI demo: rc {rc}, {ms:.1f} ms, launches {launches}")
+    check(rc == 0 and pipe is not None, f"CLI rc {rc}")
+    check(pipe.device.type == "cuda", f"CLI ran on {pipe.device}")
+    check(len(pipe.waypoints) == 1, f"{len(pipe.waypoints)} waypoints")
+    check(pipe._degraded == 0, f"{pipe._degraded} error branches ran")
+    check(pipe._host_icp_retries == 0, "the host ICP retry ran")
+    check(launches["K9"] > 0, "K9 did not launch in the CLI demo")
+    res = pipe.instance_results[0]
+    return {
+        "route": "CLI demo", "main_path": "python -m tpu3d_torch",
+        "config": "config/pipeline_config.yaml, bilateral_filter: true, "
+                  "visualization: none",
+        "rc": rc, "ms": ms, "waypoints": len(pipe.waypoints),
+        "fitness": res["fitness"], "coarse_fitness": res["coarse_fitness"],
+        "launches": launches,
+    }
+
+
+class RunProbe:
+    """Host-clock stage times of one ``Pipeline.run()``, from wrappers
+    around the pipeline's own functions and methods (synchronised at each
+    boundary); it also keeps what the prepare and register stages saw."""
+
+    def __init__(self, torch, pl, pipe):
+        self.torch, self.pl, self.pipe = torch, pl, pipe
+        self.marks, self.prepared, self.reference = {}, {}, None
+        self.poses = None
+
+    def _timed(self, name, fn):
+        def wrapped(*a, **k):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.torch.cuda.synchronize()
+            self.marks.setdefault(name, []).append((t0, time.perf_counter()))
+            return out
+        return wrapped
+
+    @contextlib.contextmanager
+    def patched(self):
+        pl, pipe = self.pl, self.pipe
+        funcs = {n: getattr(pl, n) for n in
+                 ("get_masks", "load_ply", "filter_duplicates")}
+        prepare, register = pipe.prepare_instance, pipe._register_instances
+
+        def prepare_kept(mask, depth_raw, rgb, K, i):
+            out = prepare(mask, depth_raw, rgb, K, i)
+            self.prepared[i] = out
+            return out
+
+        def register_kept(prepared, ref_cloud, ref_features):
+            self.reference = (ref_cloud, ref_features)
+            self.poses = register(prepared, ref_cloud, ref_features)
+            return self.poses
+
+        for n, fn in funcs.items():
+            setattr(pl, n, self._timed(n, fn))
+        pipe.prepare_instance = self._timed("prepare_instance", prepare_kept)
+        pipe._register_instances = self._timed("register", register_kept)
+        try:
+            yield
+        finally:
+            for n, fn in funcs.items():
+                setattr(pl, n, fn)
+            del pipe.prepare_instance, pipe._register_instances
+
+    def run(self):
+        """(waypoints, host ms, stage ms) of one ``run()``."""
+        self.marks, self.prepared = {}, {}
+        with self.patched(), contextlib.redirect_stdout(sys.stderr):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            waypoints = self.pipe.run()
+            self.torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        m = self.marks
+        (ply0, ply1), = m["load_ply"]
+        prep0 = min(s for s, _ in m["prepare_instance"])
+        prep1 = max(e for _, e in m["prepare_instance"])
+        (reg0, reg1), = m["register"]
+        (dd0, dd1), = m["filter_duplicates"]
+        stages = {
+            "frame_and_masks_ms": (m["get_masks"][0][1] - t0) * 1e3,
+            "load_reference_ms": (ply1 - ply0) * 1e3,
+            "prepare_reference_ms": (prep0 - ply1) * 1e3,
+            "prepare_instances_ms": (prep1 - prep0) * 1e3,
+            "register_instances_ms": (reg1 - reg0) * 1e3,
+            "dedup_ms": (dd1 - dd0) * 1e3,
+        }
+        total = (t1 - t0) * 1e3
+        stages["other_ms"] = total - sum(stages.values())
+        return waypoints, total, stages
+
+
+def bin_frame_route(torch, np, counters, tmp, frame, K, voxel=0.002):
+    """5c: ``Pipeline.run()`` on the bin frame, from files as a user feeds
+    it: the depth PNG and a gray RGB PNG as dummy data, four mask PNGs in
+    a mask directory, and the reference model as a PLY file (the frame
+    itself, unfiltered, so every instance's true pose is the identity)."""
+    import cv2
+
+    from tpu3d_torch.config import PipelineConfig
+    from tpu3d_torch.models.ply import save_ply
+    from tpu3d_torch.ops import deproject, depth
+    from tpu3d_torch.pipeline import pipeline as pl
+
+    height, width = frame.shape
+    # run() reads dummy data with these intrinsics.
+    check(np.array_equal(K, np.array([[900, 0, 640], [0, 900, 360],
+                                      [0, 0, 1]], np.float32)),
+          f"the bin frame's intrinsics differ from run()'s: {K}")
+    cfg = PipelineConfig()
+    cfg.use_camera = cfg.use_robot = False
+    cfg.visualization = "none"
+    cfg.camera.width, cfg.camera.height = width, height
+    cfg.depth.scale_to_meters = 10000.0
+    cfg.depth.bilateral_filter = True
+    cfg.registration.voxel_size = voxel
+    cfg.camera_extrinsics = np.eye(4, dtype=np.float32)
+    cfg.dummy_depth_path = os.path.join(tmp, "bin_depth.png")
+    cfg.dummy_rgb_path = os.path.join(tmp, "bin_rgb.png")
+    cfg.segmentation.masks_input_dir = os.path.join(tmp, "bin_masks")
+    cfg.reference_model_path = os.path.join(tmp, "bin_frame.ply")
+    check(cv2.imwrite(cfg.dummy_depth_path, frame)
+          and cv2.imwrite(cfg.dummy_rgb_path,
+                          np.full((height, width, 3), 90, np.uint8)),
+          "could not write the frame's PNGs")
+    os.makedirs(cfg.segmentation.masks_input_dir)
+    for i, m in enumerate(bin_masks(np, width, height)):
+        cv2.imwrite(os.path.join(cfg.segmentation.masks_input_dir,
+                                 f"mask_{i}.png"), m)
+    with contextlib.redirect_stdout(sys.stderr):
+        pipe = pl.Pipeline(cfg, sleep_fn=lambda s: None)
+    d_m = depth.depth_preprocess(
+        torch.from_numpy(frame.astype(np.float32)).to(pipe.device), None,
+        cfg.depth.scale_to_meters)
+    cloud = deproject.deproject(d_m, None, torch.from_numpy(K),
+                                cfg.depth.clipping_max)
+    save_ply(cfg.reference_model_path, cloud.points[cloud.mask].cpu().numpy())
+    probe = RunProbe(torch, pl, pipe)
+
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    waypoints, first_ms, _ = probe.run()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    launches = launch_counts(counters)
+    log(f"bin frame: launches {launches}")
+    prepared = [probe.prepared[i] for i in range(len(probe.prepared))]
+    poses = probe.poses
+    check(len(prepared) == 4 and all(p is not None for p in prepared),
+          "an instance was not prepared")
+    check(all(p is not None for p in poses), "an instance has no pose")
+    check(pipe._degraded == 0, f"{pipe._degraded} error branches ran")
+    check(pipe._host_icp_retries == 0, "the host ICP retry ran")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel did not launch: {launches}")
+    check(len(waypoints) >= 1, "no waypoint")
+    caps = [p[0].capacity for p in prepared]
+    sparse = [p[1] is None for p in prepared]
+    check(caps[0] == caps[1] == caps[2] and all(sparse[:3])
+          and pipe._batched_groups == 1,
+          f"the large instances did not batch on the sparse arm: {caps}, "
+          f"{sparse}")
+    check(caps[3] < 2048 and not sparse[3],
+          f"the small instance's capacity is {caps[3]}")
+    errs = []
+    for T in poses:
+        rot = float(np.abs(T[:3, :3] - np.eye(3)).max())
+        trn = float(np.abs(T[:3, 3]).max())
+        errs.append((rot, trn))
+        check(np.isfinite(T).all() and rot < 0.02 and trn < 0.005,
+              f"quality gate failed: rotation {rot}, translation {trn}")
+    results = sorted(pipe.instance_results, key=lambda r: r["instance_id"])
+    log(f"bin frame: capacities {caps}, fitness "
+        f"{[round(r['fitness'], 5) for r in results]}, pose errors {errs}, "
+        f"{len(waypoints)} waypoints after dedup, {first_ms:.1f} ms cold")
+
+    warm = [probe.run() for _ in range(2)]
+    busy = device_busy_ms(torch, probe.run)
+    return {
+        "route": "pipeline, bin frame",
+        "main_path": "Pipeline.run: dummy-data PNGs, mask directory, PLY "
+                     "reference",
+        "frame": [width, height], "voxel": voxel,
+        "neighbor_mode": pipe._neighbor_mode,
+        "reference_capacity": probe.reference[0].capacity,
+        "instance_capacities": caps, "instance_rows": [
+            p[0].count() for p in prepared],
+        "sparse_arm": sparse, "batched_groups": pipe._batched_groups,
+        "fitness": [r["fitness"] for r in results],
+        "coarse_fitness": [r["coarse_fitness"] for r in results],
+        "pose_errors": errs, "waypoints_after_dedup": len(waypoints),
+        "launches": launches, "pipeline_ms_cold": first_ms,
+        "pipeline_ms_warm": [ms for _, ms, _ in warm],
+        "stages_ms": warm[-1][2], "peak_mem_mb": peak_mb,
+        "device_busy_ms": busy,
+    }
+
+
+def pipeline_phase(torch, np, counters, k9):
+    """Phase 5: K9 against its plain version, the CLI demo, and the bin
+    frame through the pipeline."""
+    import tempfile
+
+    from tpu3d_torch.models.fixtures import bin_frame
+    from tpu3d_torch.ops import depth
+
+    frame, K = bin_frame()
+    height, width = frame.shape
+    dev = torch.device("cuda", 0)
+    raw = torch.from_numpy(frame.astype(np.float32)).to(dev)
+    masked = depth.depth_preprocess(
+        raw, torch.from_numpy(bin_masks(np, width, height)[0]).to(dev),
+        10000.0)
+    k9_phase(torch, depth, masked, 2.0, "", k9)
+    k9_phase(torch, depth, masked, 3.0, "_r5", k9)
+    k9_phase(torch, depth, depth.depth_preprocess(raw, None, 10000.0), 2.0,
+             "_full_frame", k9)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = cli_demo(torch, counters, tmp)
+        route = bin_frame_route(torch, np, counters, tmp, frame, K)
+    return cli, route
+
+
 def run(args):
     import numpy as np
     import torch
@@ -655,7 +999,8 @@ def run(args):
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    build.build(verbose=True)
+    with contextlib.redirect_stdout(sys.stderr):  # the compiler's report
+        build.build(verbose=True)
     build.library()
     build_s = time.perf_counter() - t0
     log(f"kernels built in {build_s:.1f} s")
@@ -674,9 +1019,34 @@ def run(args):
                                          args.voxel, k5, k6, k7)
     scale_route["build_s"] = build_s
 
-    print(json.dumps({"kernels": sweeps + [k5, k6, k7]}), flush=True)
+    from tpu3d_torch.ops import (
+        depth,
+        features,
+        icp_stats,
+        nn,
+        ransac_score,
+    )
+
+    k9 = {"name": "bilateral_filter (K9)", "route": "cuda",
+          "source": "tpu3d_torch/csrc/depth.cu",
+          "replaces": "tpu3d/ops/depth.py:88"}
+    counters = {"K2": features.moments_sweep, "K3": features.spfh_sweep,
+                "K4": features.fpfh_sweep, "K5": nn.nearest_neighbor,
+                "K6": ransac_score.score_hypotheses,
+                "K7": icp_stats.icp_p2plane_stats,
+                "K9": depth.bilateral_filter}
+    cli, bin_route = pipeline_phase(torch, np, counters, k9)
+    k9["launches"] = bin_route["launches"]["K9"]
+    kernels = sweeps + [k5, k6, k7, k9]
+    for entry, name in zip(kernels, counters):
+        entry["launches_pipeline"] = bin_route["launches"][name]
+        entry["launches_cli"] = cli["launches"][name]
+
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps(ref_route), flush=True)
     print(json.dumps(scale_route), flush=True)
+    print(json.dumps(cli), flush=True)
+    print(json.dumps(bin_route), flush=True)
     return {
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -687,7 +1057,7 @@ def run(args):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--points", type=int, default=100352,
-                    help="points of the at-scale pair (bench.make_pair)")
+                    help="points of the at-scale pair (make_pair)")
     ap.add_argument("--voxel", type=float, default=0.002,
                     help="voxel size of the at-scale pair")
     args = ap.parse_args()

@@ -1,0 +1,48 @@
+"""The kernels' first build under concurrent first calls: the pipeline's
+prepare threads can all reach ``build.library()`` before it has built."""
+
+import sys
+import threading
+import time
+import types
+
+from tpu3d_torch import build
+
+
+def test_concurrent_first_calls_build_once(monkeypatch):
+    builds = []
+
+    def slow_build(verbose=False):
+        builds.append(threading.get_ident())
+        time.sleep(0.05)  # long enough for every thread to arrive
+        return "libtpu3d_kernels_test.so"
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(build, "build", slow_build)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: FakeLib())
+    build._load.cache_clear()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    libs = []
+    try:
+        threads = [
+            threading.Thread(target=lambda: libs.append(build.library()))
+            for _ in range(32)
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+        build._load.cache_clear()
+    assert len(builds) == 1
+    assert len(libs) == 32 and all(lib is libs[0] for lib in libs)
+    assert libs[0].tpu3d_bilateral_filter.argtypes == build.SIGNATURES[
+        "tpu3d_bilateral_filter"]

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K2-K7) against their plain PyTorch versions,
-on the card. Every test here needs a CUDA device and skips
-without one.
+"""The port's CUDA kernels (K2-K7, K9) against their plain PyTorch
+versions, and the pipeline's routes, on the card. Every test here needs a
+CUDA device and skips without one.
 
 This file imports neither jax nor tpu3d, so it runs where they are not
 installed: ``python -m pytest --noconftest -m cuda
@@ -12,7 +12,9 @@ import pytest
 import torch
 
 import tpu3d_torch
+from tpu3d_torch.models.fixtures import make_pair
 from tpu3d_torch.ops import (
+    depth,
     features,
     fused_features,
     icp,
@@ -131,8 +133,6 @@ def test_icp_stats_kernel_matches_plain(dev):
 
 
 def test_register_pair_on_card(dev):
-    from bench import make_pair
-
     src, tgt, R, t = make_pair(2048, voxel=0.005)
     cfg = tpu3d_torch.RegistrationConfig(voxel_size=0.005,
                                          ransac_max_iterations=30000)
@@ -226,8 +226,6 @@ def test_sparse_equals_dense_on_card(dev, block, degenerate):
 
 def test_sparse_register_pair_on_card(dev):
     """The sparse arm at bucket 32,768 launches every kernel K2-K7."""
-    from bench import make_pair
-
     src, tgt, R, t = make_pair(40000, voxel=0.004)
     cfg = tpu3d_torch.RegistrationConfig(voxel_size=0.004,
                                          ransac_max_iterations=30000)
@@ -242,3 +240,69 @@ def test_sparse_register_pair_on_card(dev):
     assert np.abs(T[:3, :3] - R).max() < 0.02
     assert np.abs(T[:3, 3] - t).max() < 0.005
     assert all(k.launches > b for k, b in zip(kernels, before))
+
+
+@pytest.mark.parametrize("sigma_s,radius", [(2.0, 4), (3.0, 5)])
+def test_bilateral_kernel_matches_plain(dev, sigma_s, radius):
+    """K9 on a frame with holes and a zero border strip, odd sizes so the
+    32 x 8 blocks meet the frame's edge part way."""
+    g = torch.Generator().manual_seed(radius)
+    d = 0.5 + torch.rand(203, 301, generator=g)
+    d[torch.rand(203, 301, generator=g) < 0.2] = 0.0
+    d[:, :3] = 0.0
+    d[40:60, 50:90] += 0.3  # a step well above sigma_range
+    assert depth.bf_radius(sigma_s) == radius
+    pd = depth.bilateral_filter(d, sigma_s, 0.05)
+    before = depth.bilateral_filter.launches
+    kd = depth.bilateral_filter(d.to(dev), sigma_s, 0.05)
+    torch.cuda.synchronize()
+    assert depth.bilateral_filter.launches == before + 1
+    assert kd.is_cuda and kd.shape == d.shape
+    assert torch.equal(kd.cpu() == 0, pd == 0)
+    assert float((kd.cpu() - pd).abs().max()) <= 1e-6
+
+
+def test_bilateral_kernel_rejects_double_and_batch(dev):
+    with pytest.raises(TypeError):
+        depth.bilateral_filter(torch.ones(8, 8, dtype=torch.float64,
+                                          device=dev))
+    with pytest.raises(ValueError):
+        depth.bilateral_filter(torch.ones(2, 8, 8, device=dev))
+
+
+@pytest.mark.parametrize("iters", [3000, 20000])
+def test_gather_routes_on_card(dev, iters):
+    """Below 2,048 rows RANSAC draws with the gather sampler: one shot at
+    3,000 hypotheses, chunked at 20,000; both find the pose on the card."""
+    src, tgt, R, t = make_pair(1500, voxel=0.005)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=0.005,
+                                         ransac_max_iterations=iters)
+    before = ransac_score.score_hypotheses.launches
+    refined, coarse = tpu3d_torch.register_pair(
+        tpu3d_torch.PointCloud.from_numpy(src, device=dev),
+        tpu3d_torch.PointCloud.from_numpy(tgt, device=dev), cfg)
+    T = refined.transformation.cpu().numpy()
+    assert float(coarse.fitness) > 0.3
+    assert np.abs(T[:3, :3] - R).max() < 0.02
+    assert np.abs(T[:3, 3] - t).max() < 0.005
+    assert ransac_score.score_hypotheses.launches > before
+
+
+def test_pipeline_cli_on_card(dev, tmp_path, capsys):
+    """``python -m tpu3d_torch`` on a small demo config runs on the card,
+    with K9 in the depth front end."""
+    from tpu3d_torch.__main__ import main
+
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(
+        "camera:\n  width: 320\n  height: 240\n"
+        "depth:\n  bilateral_filter: true\n"
+        "registration:\n  voxel_size: 0.005\n  ransac_max_iterations: 500\n"
+        "  icp_max_iterations: 10\n"
+        "use_camera: false\nuse_robot: false\nvisualization: \"none\"\n"
+    )
+    before = depth.bilateral_filter.launches
+    assert main([str(cfg_path)]) == 0
+    out = capsys.readouterr().out
+    assert "accelerator=on" in out and "Computed 1 pick poses." in out
+    assert depth.bilateral_filter.launches == before + 1

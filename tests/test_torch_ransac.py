@@ -1,6 +1,7 @@
 """RANSAC port parity: the K6 plain version against the JAX scorers, and
-the chunked ``ransac_registration`` against the JAX one with the JAX
-draw stream replayed."""
+``ransac_registration``'s routes (chunked with the rotation or the gather
+sampler, one shot) against the JAX one with the JAX draw stream
+replayed."""
 
 import jax
 import jax.numpy as jnp
@@ -26,16 +27,24 @@ from torch_threads import one_torch_thread  # noqa: F401
 VOXEL = 0.005
 
 
-def jax_draws(seed):
-    """The JAX package's per-(chunk, epoch) triples (ops/ransac.py)."""
-    hyp_key = jax.random.fold_in(jax.random.PRNGKey(seed), 7)
+class JaxDraws:
+    """The JAX package's draw stream (ops/ransac.py): the rotation
+    sampler's per-(chunk, epoch) triples and the gather sampler's (h, 3)
+    row draws, per chunk or (chunk None) from the one-shot key."""
 
-    def draw(c, e):
-        k = jax.random.fold_in(jax.random.fold_in(hyp_key, c), e)
+    def __init__(self, seed):
+        self.key = jax.random.PRNGKey(seed)
+        self.hyp_key = jax.random.fold_in(self.key, 7)
+
+    def __call__(self, c, e):
+        k = jax.random.fold_in(jax.random.fold_in(self.hyp_key, c), e)
         u = np.asarray(jax.random.randint(k, (3,), 0, 1 << 30))
         return int(u[0]), int(u[1]), int(u[2])
 
-    return draw
+    def triples(self, c, h, count):
+        k = self.key if c is None else jax.random.fold_in(self.hyp_key, c)
+        d = jax.random.randint(k, (h, 3), 0, jnp.int32(count))
+        return torch.from_numpy(np.asarray(d).astype(np.int64))
 
 
 def _t(a):
@@ -131,7 +140,7 @@ def test_ransac_registration_replays_jax(prepared_4096):
     ref = jax_ransac(sd, td, sf, tf, VOXEL, max_iterations=30000)
     got = ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
                                      max_iterations=30000,
-                                     draws=jax_draws(42))
+                                     draws=JaxDraws(42))
     np.testing.assert_allclose(got.transformation.numpy(),
                                np.asarray(ref.transformation), atol=1e-5)
     assert float(got.fitness) == float(ref.fitness)
@@ -157,7 +166,7 @@ def test_corr_subsample_replays_jax(prepared_4096):
     kw = dict(max_iterations=30000, corr_cap=2048, est_cap=512)
     ref = jax_ransac(sd, td, sf, tf, VOXEL, **kw)
     got = ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
-                                     draws=jax_draws(42), **kw)
+                                     draws=JaxDraws(42), **kw)
     np.testing.assert_allclose(got.transformation.numpy(),
                                np.asarray(ref.transformation), atol=1e-5)
     assert float(got.fitness) == float(ref.fitness)
@@ -165,16 +174,104 @@ def test_corr_subsample_replays_jax(prepared_4096):
     assert float(got.fitness) > 0.3
     # 'exact' keeps every row: a different correspondence set.
     exact = ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
-                                       corr_mode="exact", draws=jax_draws(42),
+                                       corr_mode="exact", draws=JaxDraws(42),
                                        **kw)
     assert float(exact.fitness) != float(got.fitness)
 
 
 def test_unported_routes_raise(prepared_4096):
+    """Only two-stage scoring is left; it names its ROADMAP item."""
     ts, tt, tsf, ttf = _to_torch(*prepared_4096)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
-                                   max_iterations=10000)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
                                    max_iterations=30000, two_stage=True)
+
+
+def _assert_replays(got, ref, n_valid):
+    """The same winner: the pose within 1e-5 and identical inlier counts."""
+    np.testing.assert_allclose(got.transformation.numpy(),
+                               np.asarray(ref.transformation), atol=1e-5)
+    assert round(float(got.fitness) * n_valid) == round(
+        float(ref.fitness) * n_valid)
+    np.testing.assert_allclose(float(got.rmse), float(ref.rmse), rtol=1e-5)
+
+
+@pytest.mark.parametrize("iters,corr_mode", [(3000, "exact"),
+                                             (10000, "auto")])
+def test_one_shot_replays_jax(prepared_4096, iters, corr_mode):
+    """max_iterations ≤ the chunk size: every gather-sampled hypothesis
+    scored at once (with the corr subset at corr_cap 2,048)."""
+    sd, td, sf, tf = prepared_4096
+    ts, tt, tsf, ttf = _to_torch(sd, td, sf, tf)
+    kw = dict(max_iterations=iters, corr_mode=corr_mode, corr_cap=2048)
+    ref = jax_ransac(sd, td, sf, tf, VOXEL, **kw)
+    got = ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
+                                     draws=JaxDraws(42), **kw)
+    n_valid = 2048 if corr_mode == "auto" else int(np.asarray(sd.mask).sum())
+    _assert_replays(got, ref, n_valid)
+    assert float(got.fitness) > 0.3
+
+
+def test_gather_sampler_chunks_replay_jax(prepared_4096):
+    """Below 2,048 rows (here the corr subset at corr_cap 1,024) the
+    chunked route draws with the gather sampler: an exhaustive 2-chunk
+    budget (a confidence no hypothesis exceeds) and the early exit both
+    give JAX's winner."""
+    sd, td, sf, tf = prepared_4096
+    ts, tt, tsf, ttf = _to_torch(sd, td, sf, tf)
+    stride = ransac.decimation_stride(4096, 1024)
+    n_valid = int(np.asarray(sd.mask)[: stride * 1024 : stride].sum())
+    for conf in (1.0, 0.5):
+        kw = dict(max_iterations=20000, confidence=conf, corr_cap=1024)
+        ref = jax_ransac(sd, td, sf, tf, VOXEL, **kw)
+        got = ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
+                                         draws=JaxDraws(42), **kw)
+        _assert_replays(got, ref, n_valid)
+        assert float(got.fitness) > 0.3
+
+
+def test_gather_sampler_small_counts():
+    """Fewer than three valid rows: every gather triple repeats a row, so
+    the result is the identity with fitness 0 on both routes."""
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(-0.1, 0.1, (256, 3)).astype(np.float32)
+    desc = rng.uniform(size=(256, 33)).astype(np.float32)
+    for n_valid in (1, 2):
+        mask = np.arange(256) < n_valid
+        cloud = PointCloud(points=_t(pts), mask=_t(mask))
+        feat = FPFHFeatures(descriptors=_t(desc), mask=_t(mask))
+        for iters in (1000, 20000):
+            res = ransac.ransac_registration(cloud, cloud, feat, feat, VOXEL,
+                                             max_iterations=iters)
+            assert float(res.fitness) == 0.0
+            np.testing.assert_array_equal(res.transformation.numpy(),
+                                          np.eye(4, dtype=np.float32))
+
+
+def test_gather_solve_matches_jax(rng):
+    """One gather draw through kabsch_quat and pack_hypotheses."""
+    from tpu3d.ops.transforms import kabsch_quat as jax_kq
+
+    n, h = 300, 500
+    p = rng.uniform(-0.3, 0.3, (n, 3)).astype(np.float32)
+    q = p + rng.normal(0, 1e-3, (n, 3)).astype(np.float32)
+    mask = rng.uniform(size=n) > 0.2
+    tri = rng.integers(0, int(mask.sum()), (h, 3))
+    perm = np.argsort(~mask, kind="stable")
+    s6 = np.concatenate([p, q], 1)[perm[tri]]
+    Rs, ts = jax_kq(jnp.asarray(s6[..., :3]), jnp.asarray(s6[..., 3:]))
+    w_ref, tn_ref = pack_hypotheses(Rs, ts)
+    w, tn, disabled = ransac.solve_gather(
+        torch.from_numpy(tri), 7, torch.from_numpy(perm),
+        torch.from_numpy(np.concatenate([p, q], 1)), 400)
+    dup = ((tri[:, 0] == tri[:, 1]) | (tri[:, 1] == tri[:, 2])
+           | (tri[:, 0] == tri[:, 2]))
+    np.testing.assert_array_equal(disabled.numpy(),
+                                  dup | (7 + np.arange(h) >= 400))
+    # A repeated row leaves the rotation undetermined (any answer is
+    # disabled); every distinct triple solves to the same pose.
+    assert 0 < dup.sum() < h // 10
+    np.testing.assert_allclose(w.numpy()[:, ~dup], np.asarray(w_ref)[:, ~dup],
+                               atol=2e-5)
+    np.testing.assert_allclose(tn.numpy()[~dup], np.asarray(tn_ref)[~dup],
+                               atol=2e-6)

@@ -3,28 +3,16 @@
 on the reference-parity route and on the sparse arm (with its escalation),
 and the routes the port does not hold yet."""
 
-import jax
 import numpy as np
 import pytest
 
 import tpu3d
 import tpu3d_torch
 from bench import make_pair
+from test_torch_ransac import JaxDraws
 from torch_threads import one_torch_thread  # noqa: F401
 
 VOXEL = 0.005
-
-
-def jax_draws(seed):
-    """The JAX package's per-(chunk, epoch) triples (ops/ransac.py)."""
-    hyp_key = jax.random.fold_in(jax.random.PRNGKey(seed), 7)
-
-    def draw(c, e):
-        k = jax.random.fold_in(jax.random.fold_in(hyp_key, c), e)
-        u = np.asarray(jax.random.randint(k, (3,), 0, 1 << 30))
-        return int(u[0]), int(u[1]), int(u[2])
-
-    return draw
 
 
 def _gate(T, R, t):
@@ -49,7 +37,7 @@ def test_register_pair_matches_jax(n, capacity):
     assert d.capacity == capacity
     got, coarse = tpu3d_torch.register_pair(
         s, tpu3d_torch.PointCloud.from_numpy(tgt, device="cpu"), cfg,
-        draws=jax_draws(cfg.ransac_seed),
+        draws=JaxDraws(cfg.ransac_seed),
     )
     T = got.transformation.numpy()
     T_ref = np.asarray(ref.transformation)
@@ -78,7 +66,7 @@ def test_register_pair_sparse_arm_matches_jax():
     got, coarse = tpu3d_torch.register_pair(
         tpu3d_torch.PointCloud.from_numpy(src, device="cpu"),
         tpu3d_torch.PointCloud.from_numpy(tgt, device="cpu"), cfg,
-        draws=jax_draws(cfg.ransac_seed),
+        draws=JaxDraws(cfg.ransac_seed),
     )
     T = got.transformation.numpy()
     T_ref = np.asarray(ref.transformation)
@@ -134,7 +122,7 @@ def test_sparse_register_escalated_matches_jax(sparse_inputs, escalate_below,
                   escalate_below=escalate_below)
     ref, _, ref_esc = jax_arm(js, jt, jtf, interpret=True, **common)
     got, _, esc = reg.sparse_register_escalated(ts, tt, ttf,
-                                                draws=jax_draws(3), **common)
+                                                draws=JaxDraws(3), **common)
     assert len(dense_calls) == (escalate_below > 0)
     assert esc == ref_esc is False
     T = got.transformation.numpy()
@@ -161,3 +149,13 @@ def test_unported_routes_raise():
     assert not reg.sparse_prepare_active(cfg, "fused", big)
     assert reg.sparse_prepare_active(
         tpu3d_torch.RegistrationConfig(prepare_mode="sparse"), "auto", s)
+
+
+@pytest.mark.parametrize("n,seed,voxel", [(600, 0, 0.005), (5000, 3, 0.002)])
+def test_fixture_copy_equals_bench(n, seed, voxel):
+    """The port's own ``make_pair`` (used by ``chip_smoke.py``) is the bench
+    fixture, value for value."""
+    from tpu3d_torch.models.fixtures import make_pair as port_make_pair
+
+    for a, b in zip(port_make_pair(n, seed, voxel), make_pair(n, seed, voxel)):
+        np.testing.assert_array_equal(a, b)

@@ -1,11 +1,13 @@
 """tpu3d_torch — the PyTorch/CUDA port of :mod:`tpu3d` for NVIDIA Hopper.
 
 A second package beside the JAX one, with the same module names so each
-counterpart is easy to find. Plain tensor code is PyTorch; the hot kernels
-(top-1 nearest neighbour, RANSAC hypothesis scoring, ICP point-to-plane
-statistics) are hand-written CUDA C++ under ``csrc/``, built with ``nvcc``
-for ``sm_90a`` at first use. A tensor on the CPU takes each kernel's plain
-PyTorch version instead.
+counterpart is easy to find: ``register_pair`` here, the bin-picking
+pipeline in ``pipeline/`` and its CLI, ``python -m tpu3d_torch
+[config.yaml]``. Plain tensor code is PyTorch; the hot kernels (the fused
+prepare sweeps, top-1 nearest neighbour, RANSAC hypothesis scoring, ICP
+point-to-plane statistics, the depth bilateral filter) are hand-written
+CUDA C++ under ``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use.
+A tensor on the CPU takes each kernel's plain PyTorch version instead.
 
 This package imports neither ``jax`` nor ``tpu3d``.
 """

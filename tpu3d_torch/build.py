@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -33,9 +34,10 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
-# C entry points and their argument types (pointers, ints, floats, and the
-# stream last).
+# C entry points and their argument types (pointers, ints, floats, doubles,
+# and the stream last).
 SIGNATURES = {
     "tpu3d_nn_top1": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "tpu3d_ransac_score": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
@@ -43,7 +45,13 @@ SIGNATURES = {
     "tpu3d_moments_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     "tpu3d_spfh_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "tpu3d_fpfh_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+    "tpu3d_bilateral_filter": [_P, _P, _I, _I, _I, _D, _F, _P],
 }
+
+# Serialises the first build: the pipeline's prepare threads can reach
+# their first kernel together.
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _sources() -> list[Path]:
@@ -113,9 +121,15 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on the first call; concurrent first
+    calls build once)."""
+    with _BUILD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -128,3 +142,10 @@ def check(err: int, name: str) -> None:
     """Raise when a launch reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's ``launches`` count. The pipeline's
+    prepare threads launch kernels at once, so the count is locked."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

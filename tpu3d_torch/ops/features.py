@@ -188,7 +188,7 @@ def moments_sweep(q8, packed3, lo, ln, r2, block, sub=None):
         return moments_sweep_plain(q8, packed3, lo, ln, r2, block)
     out = torch.empty((8, q8.shape[1]), dtype=torch.float32, device=q8.device)
     _launch("tpu3d_moments_sweep", q8, packed3, lo, ln, r2, block, out)
-    moments_sweep.launches += 1
+    build.count_launch(moments_sweep)
     return out
 
 
@@ -267,7 +267,7 @@ def spfh_sweep(q8n, packed10, lo, ln, r2, block, sub=None):
     host_thresh = (ctypes.c_float * 20)(*THRESH.tolist())
     _launch("tpu3d_spfh_sweep", q8n, packed10, lo, ln, r2, block, out,
             ctypes.cast(host_thresh, ctypes.c_void_p).value)
-    spfh_sweep.launches += 1
+    build.count_launch(spfh_sweep)
     return out
 
 
@@ -318,7 +318,7 @@ def fpfh_sweep(q8, packed36, lo, ln, r2, block, sub=None):
     out = torch.empty((q8.shape[1], 36), dtype=torch.float32,
                       device=q8.device)
     _launch("tpu3d_fpfh_sweep", q8, packed36, lo, ln, r2, block, out)
-    fpfh_sweep.launches += 1
+    build.count_launch(fpfh_sweep)
     return out
 
 

@@ -123,7 +123,7 @@ def icp_p2plane_stats(
         torch.cuda.current_stream(pts.device).cuda_stream,
     )
     build.check(rc, "tpu3d_icp_p2plane_stats")
-    icp_p2plane_stats.launches += 1
+    build.count_launch(icp_p2plane_stats)
     return out
 
 

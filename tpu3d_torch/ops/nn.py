@@ -76,7 +76,7 @@ def nearest_neighbor(
         torch.cuda.current_stream(queries.device).cuda_stream,
     )
     build.check(err, "tpu3d_nn_top1")
-    nearest_neighbor.launches += 1
+    build.count_launch(nearest_neighbor)
     return idx, d2
 
 

@@ -1,32 +1,54 @@
-"""RANSAC coarse registration: chunked hypotheses with an exact early exit.
+"""RANSAC coarse registration: batches of hypotheses with an exact early exit.
 
 Counterpart of ``tpu3d/ops/ransac.py`` (``decimation_stride``,
-``build_scoring_factors``, ``build_rotation_table``,
-``solve_rotation_chunk``, ``feature_correspondences`` and the chunked path
-of ``ransac_registration``): 33-D descriptor nearest neighbours (K5),
-gather-free rotation sampling, the plane-wise QCP solve, and rank-16
-scoring (K6) chunk by chunk until a hypothesis exceeds ``confidence``.
-``score_w16`` is :func:`tpu3d_torch.ops.ransac_score.score_hypotheses`.
+``build_scoring_factors``, ``pack_hypotheses``, ``build_rotation_table``,
+``solve_rotation_chunk``, ``feature_correspondences`` and the chunked and
+one-shot routes of ``ransac_registration``): 33-D descriptor nearest
+neighbours (K5), 3-point samples solved by QCP, and rank-16 scoring (K6).
+Two samplers, as in the JAX package: the gather-free rotation sampler
+(chunked route, n ≥ 2,048) and the gather sampler (three independent
+valid-row draws per hypothesis, duplicates disabled) below that and on the
+one-shot route (``max_iterations`` ≤ the chunk size), which scores every
+hypothesis at once. ``score_w16`` is
+:func:`tpu3d_torch.ops.ransac_score.score_hypotheses`.
 
 The JAX ``while_loop`` over chunks becomes a Python loop that reads one
-flag back per chunk. The per-(chunk, epoch) random triples come from an
-injectable ``draws(chunk, epoch) -> (u0, u1, u2)`` callable, each in
-[0, 2**30): :func:`torch_draws` by default; tests replay the JAX stream.
+flag back per chunk. The random draws come from an injectable
+:class:`Draws` stream: :func:`torch_draws` by default; tests replay the
+JAX stream.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Protocol
 
 import numpy as np
 import torch
 
 from tpu3d_torch.ops.nn import nearest_neighbor
 from tpu3d_torch.ops.ransac_score import score_hypotheses
-from tpu3d_torch.ops.transforms import kabsch3_planes, make_transform
+from tpu3d_torch.ops.transforms import (
+    kabsch3_planes,
+    kabsch_quat,
+    make_transform,
+)
 from tpu3d_torch.types import FPFHFeatures, PointCloud, RegistrationResult
 
-Draws = Callable[[int, int], tuple[int, int, int]]
+
+class Draws(Protocol):
+    """The RANSAC draw stream.
+
+    ``draws(chunk, epoch)`` is the rotation sampler's triple (u0, u1, u2),
+    each in [0, 2**30). ``draws.triples(chunk, h, count)`` is the gather
+    sampler's i64[h, 3] row draws in [0, count) (CPU), ``chunk`` None on
+    the one-shot route. A plain function serves where only the rotation
+    sampler runs."""
+
+    def __call__(self, chunk: int, epoch: int) -> tuple[int, int, int]: ...
+
+    def triples(self, chunk: int | None, h: int, count: int) -> torch.Tensor:
+        ...
+
 
 def hypothesis_chunk(max_iterations: int) -> int:
     """Hypotheses per chunk: a quarter of the budget, rounded up to 1,024,
@@ -35,19 +57,32 @@ def hypothesis_chunk(max_iterations: int) -> int:
     return max(16384, (quarter + 1023) // 1024 * 1024)
 
 
-def torch_draws(seed: int) -> Draws:
-    """Default draw stream: a seeded ``torch.Generator`` per (chunk, epoch)
-    (a different stream from ``jax.random``, the same class of delta as any
-    reseeding)."""
+class TorchDraws:
+    """Default draw stream: a seeded ``torch.Generator`` per (chunk, epoch),
+    and per chunk for the gather sampler (a different stream from
+    ``jax.random``, the same class of delta as any reseeding)."""
 
-    def draw(chunk: int, epoch: int) -> tuple[int, int, int]:
-        g = torch.Generator().manual_seed(
-            (seed * 1_000_003 + chunk) * 1_000_003 + epoch
+    def __init__(self, seed: int):
+        self.seed = seed
+
+    def _generator(self, chunk: int, epoch: int) -> torch.Generator:
+        return torch.Generator().manual_seed(
+            (self.seed * 1_000_003 + chunk) * 1_000_003 + epoch
         )
-        u = torch.randint(0, 1 << 30, (3,), generator=g)
+
+    def __call__(self, chunk: int, epoch: int) -> tuple[int, int, int]:
+        u = torch.randint(0, 1 << 30, (3,),
+                          generator=self._generator(chunk, epoch))
         return int(u[0]), int(u[1]), int(u[2])
 
-    return draw
+    def triples(self, chunk: int | None, h: int, count: int) -> torch.Tensor:
+        # Epoch −1 never occurs on the rotation side.
+        g = self._generator(-1 if chunk is None else chunk, -1)
+        return torch.randint(0, max(count, 1), (h, 3), generator=g)
+
+
+def torch_draws(seed: int) -> TorchDraws:
+    return TorchDraws(seed)
 
 
 def decimation_stride(n: int, cap: int) -> int:
@@ -85,6 +120,37 @@ def build_scoring_factors(p_, q_, mask_):
         ]
     )
     return ft.contiguous(), pq
+
+
+def pack_hypotheses(Rs, ts):
+    """(h, 3, 3)/(h, 3) solutions → K-major (16, h) scoring factors
+    [Rᵀt | t | vec(R) | 0] and ‖t‖²."""
+    u = [(Rs[:, 0, j] * ts[:, 0] + Rs[:, 1, j] * ts[:, 1])
+         + Rs[:, 2, j] * ts[:, 2] for j in range(3)]
+    w16t = torch.stack(
+        u + [ts[:, 0], ts[:, 1], ts[:, 2]]
+        + [Rs[:, i, j] for i in range(3) for j in range(3)]
+        + [torch.zeros_like(ts[:, 0])]
+    )
+    t_norm = (ts[:, 0] * ts[:, 0] + ts[:, 1] * ts[:, 1]) + ts[:, 2] * ts[:, 2]
+    return w16t, t_norm
+
+
+def solve_gather(triples, first_id, perm, pq_packed, max_iterations):
+    """Gather sampling: hypothesis i takes the valid rows ``perm[triples[i]]``
+    (three independent draws; a repeated draw disables it, as the
+    reference rejects it), solved by QCP. Returns (w16t (16, h), t_norm
+    (h,), disabled (h,))."""
+    tri = triples.to(perm.device)
+    h = tri.shape[0]
+    dup = ((tri[:, 0] == tri[:, 1]) | (tri[:, 1] == tri[:, 2])
+           | (tri[:, 0] == tri[:, 2]))
+    ids = first_id + torch.arange(h, device=perm.device)
+    disabled = dup | (ids >= max_iterations)
+    s6 = pq_packed[perm[tri]]  # (h, 3, 6)
+    Rs, ts = kabsch_quat(s6[..., :3], s6[..., 3:])
+    w16t, t_norm = pack_hypotheses(Rs, ts)
+    return w16t, t_norm, disabled
 
 
 def build_rotation_table(pq_packed, src_mask, count: int):
@@ -156,12 +222,6 @@ def feature_correspondences(
     return idx
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"RANSAC {what} is not ported yet (ROADMAP.md queue 1, item 6: RANSAC)"
-    )
-
-
 def ransac_registration(
     source: PointCloud,
     target: PointCloud,
@@ -179,17 +239,21 @@ def ransac_registration(
 ) -> RegistrationResult:
     """Coarse pose: the best hypothesis in the prefix that ends at the first
     one whose fitness exceeds ``confidence``, with fitness/rmse rescored
-    directly at the winner. Ports the chunked route with rotation sampling
-    and, for n ≥ 2·``est_cap``, the in-chunk estimate stage (every
-    hypothesis scored on a strided ``est_cap``-row subset, the top 32
-    rescored exactly).
+    directly at the winner.
+
+    Routes, as in the JAX package: with ``max_iterations`` above the chunk
+    size, chunks of hypotheses until one exceeds (rotation sampling for
+    ``hyp_chunk`` ≥ n ≥ 2,048, else the gather sampler), and for
+    n ≥ 2·``est_cap`` the in-chunk estimate stage (every hypothesis scored
+    on a strided ``est_cap``-row subset, the top 32 rescored exactly);
+    otherwise one shot: ⌈max_iterations/512⌉·512 gather-sampled hypotheses
+    scored at once. ``two_stage`` raises.
 
     ``corr_mode`` 'auto' or 'subsample' with n ≥ 2·``corr_cap``: exact
     correspondences for the strided ``corr_cap``-row subset of the source
     (row k·stride, ``decimation_stride``), which the hypotheses are drawn
     from and scored on; fitness normalises by the subset's valid count.
     'exact' matches every source row."""
-    device = source.points.device
     if draws is None:
         draws = torch_draws(seed)
     v32 = np.float32(voxel_size)
@@ -210,11 +274,13 @@ def ransac_registration(
     if two_stage == "auto":
         two_stage = n >= 2 * 16384 and h_total > 4 * min(1024, h_total)
     if two_stage:
-        raise _not_ported("two-stage scoring")
-    if not max_iterations > hyp_chunk:
-        raise _not_ported("one-shot scoring with the gather sampler")
-    if not hyp_chunk >= n >= 2048:
-        raise _not_ported("the gather sampler (below 2,048 rows)")
+        raise NotImplementedError(
+            "RANSAC two-stage scoring is not ported yet (ROADMAP.md queue 1, "
+            "item 6: RANSAC; reached with corr_mode='exact' on sources of "
+            "32,768 rows or more)"
+        )
+    use_chunked = max_iterations > hyp_chunk
+    use_rotation = use_chunked and hyp_chunk >= n >= 2048
 
     n_valid = max(float(src_mask.sum()), 1.0)
     count = max(int(n_valid), 1)
@@ -224,10 +290,63 @@ def ransac_registration(
     p = src_pts.to(torch.float32)
     q = target.points[corr.long()].to(torch.float32)
     feat_t, pq_norm = build_scoring_factors(p, q, src_mask)
-    pq2p = build_rotation_table(torch.cat([p, q], dim=1), src_mask, count)
+    pq_packed = torch.cat([p, q], dim=1)
+    if use_rotation:
+        pq2p = build_rotation_table(pq_packed, src_mask, count)
+        # Every chunk consumes the same number of iterations at the cloud's
+        # valid fraction: bound the loop by the chunks the budget needs.
+        cons = (hyp_chunk // n) * count + min(hyp_chunk % n, count)
+        n_chunks_bound = (max_iterations + cons - 1) // max(cons, 1)
+    else:
+        perm = torch.sort((~src_mask).to(torch.int8), stable=True)[1]
+        n_chunks_bound = -(-max_iterations // hyp_chunk)
 
-    cons = (hyp_chunk // n) * count + min(hyp_chunk % n, count)
-    n_chunks_bound = (max_iterations + cons - 1) // max(cons, 1)
+    def sample(c, first_id, h):
+        """(w16t, t_norm, disabled, iterations consumed) of ``h``
+        hypotheses from chunk ``c`` of the draw stream (None: one shot)."""
+        if use_rotation:
+            w16t, t_norm, disabled, _, n_cons = solve_rotation_chunk(
+                lambda e: draws(c, e), h, first_id, pq2p, count,
+                max_iterations)
+            return w16t, t_norm, disabled, n_cons
+        w16t, t_norm, disabled = solve_gather(
+            draws.triples(c, h, count), first_id, perm, pq_packed,
+            max_iterations)
+        return w16t, t_norm, disabled, h
+
+    if not use_chunked:
+        bf, bw = _one_shot(sample(None, 0, h_total), feat_t, pq_norm, thr2,
+                           n_valid, confidence)
+    else:
+        bf, bw = _chunks(sample, hyp_chunk, n_chunks_bound, max_iterations,
+                         confidence, thr2, n, count, n_valid, est_cap,
+                         use_rotation, p, q, src_mask, feat_t, pq_norm)
+    best_R = bw[6:15].reshape(3, 3)
+    best_t = bw[3:6]
+    return _rescore(p, q, src_mask, best_R, best_t, bf, thr2, n_valid)
+
+
+def _one_shot(sampled, feat_t, pq_norm, thr2, n_valid, confidence):
+    """Every hypothesis scored at once: (best fitness, best w16 column)."""
+    w16t, t_norm, disabled, _ = sampled
+    h_total = w16t.shape[1]
+    cnt, _ = score_hypotheses(feat_t, pq_norm, w16t, t_norm, thr2)
+    fitness = torch.where(disabled, -1.0, cnt / n_valid)
+    exceed = fitness > confidence
+    first = torch.argmax(exceed.to(torch.int8))  # first True
+    cutoff = torch.where(exceed.any(), first, h_total - 1)
+    h_ids = torch.arange(h_total, device=w16t.device)
+    masked = torch.where(h_ids <= cutoff, fitness, -2.0)
+    best = torch.argmax(masked, dim=0, keepdim=True)  # first of equals
+    return fitness[best][0], w16t[:, best][:, 0]
+
+
+def _chunks(sample, hyp_chunk, n_chunks_bound, max_iterations, confidence,
+            thr2, n, count, n_valid, est_cap, use_rotation, p, q, src_mask,
+            feat_t, pq_norm):
+    """Chunks of ``hyp_chunk`` hypotheses until one exceeds ``confidence``
+    or the budget is spent: (best fitness, best w16 column)."""
+    device = p.device
     use_est = n >= 2 * est_cap
     if use_est:
         m_e = strided_rows(src_mask, est_cap)
@@ -238,9 +357,7 @@ def ransac_registration(
     h_ids = torch.arange(hyp_chunk, device=device)
 
     def body(c, fid, bf, br, bw):
-        w16t, t_norm, disabled, _, n_cons = solve_rotation_chunk(
-            lambda e: draws(c, e), hyp_chunk, fid, pq2p, count, max_iterations
-        )
+        w16t, t_norm, disabled, n_cons = sample(c, fid, hyp_chunk)
         if use_est:
             cnt_e, _ = score_hypotheses(feat_e, pq_e, w16t, t_norm, thr2)
             fitness = torch.where(disabled, -1.0, cnt_e / n_valid_e)
@@ -286,16 +403,21 @@ def ransac_registration(
     bw[6:15] = torch.eye(3, dtype=torch.float32, device=device).reshape(9)
     fid, done, c = 0, False, 0
     # Chunk 1 always runs (the JAX peel); later chunks while the budget,
-    # the bound and the early exit allow.
+    # the bound and the early exit allow (count < 3 disables every
+    # rotation triple).
     while c == 0 or (
         c < n_chunks_bound and fid < max_iterations and not done
-        and count >= 3
+        and (count >= 3 or not use_rotation)
     ):
         fid, done, bf, br, bw = body(c, fid, bf, br, bw)
         c += 1
-    best_R = bw[6:15].reshape(3, 3)
-    best_t = bw[3:6]
+    return bf, bw
 
+
+def _rescore(p, q, src_mask, best_R, best_t, bf, thr2, n_valid):
+    """The result at the winner; identity with fitness 0 when no hypothesis
+    won."""
+    device = p.device
     # Direct rescore of the single winner: the reported fitness/rmse come
     # from the plain residual, not the rank-16 expansion.
     dr = p @ best_R.T + best_t - q

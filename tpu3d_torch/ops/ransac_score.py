@@ -62,7 +62,7 @@ def score_hypotheses(
         torch.cuda.current_stream(feat_t.device).cuda_stream,
     )
     build.check(rc, "tpu3d_ransac_score")
-    score_hypotheses.launches += 1
+    build.count_launch(score_hypotheses)
     return cnt, err
 
 

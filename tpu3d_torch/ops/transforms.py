@@ -1,7 +1,8 @@
 """SE(3) helpers and the plane-wise 3-point QCP solve.
 
 Counterpart of ``tpu3d/ops/transforms.py`` (``make_transform``,
-``transform_points``, ``euler_xyz_to_matrix``, ``_qcp_quat_planes``,
+``transform_points``, ``invert_transform``, ``euler_xyz_to_matrix``,
+``matrix_to_rpy_zyx``, ``kabsch_quat``, ``_qcp_quat_planes``,
 ``kabsch3_planes``). Plane functions take tuples of equally shaped tensors
 (one per coordinate or matrix entry) and do elementwise math only, in the
 same operation order as the JAX package so results agree to rounding.
@@ -28,6 +29,14 @@ def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return points @ R.transpose(-1, -2) + t[..., None, :]
 
 
+def invert_transform(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form SE(3) inverse [Rᵀ, −Rᵀt] of (..., 4, 4) transforms."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    Rt = R.transpose(-1, -2)
+    return make_transform(Rt, -(Rt @ t[..., None])[..., 0])
+
+
 def euler_xyz_to_matrix(angles: torch.Tensor) -> torch.Tensor:
     """R = Rx(a) @ Ry(b) @ Rz(g) for angles (..., 3) — the point-to-plane
     delta-rotation convention, exact trig."""
@@ -43,6 +52,21 @@ def euler_xyz_to_matrix(angles: torch.Tensor) -> torch.Tensor:
         [sa * sg - ca * sb * cg, sa * cg + ca * sb * sg, ca * cb], dim=-1
     )
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def matrix_to_rpy_zyx(R: torch.Tensor) -> torch.Tensor:
+    """(roll, pitch, yaw) in radians, ZYX convention, with the gimbal-lock
+    branch where |R[2, 0]| ≥ 0.999."""
+    pitch = torch.asin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+    regular = R[..., 2, 0].abs() < 0.999
+    roll = torch.where(
+        regular,
+        torch.atan2(R[..., 2, 1], R[..., 2, 2]),
+        torch.atan2(-R[..., 1, 2], R[..., 1, 1]),
+    )
+    yaw = torch.where(regular, torch.atan2(R[..., 1, 0], R[..., 0, 0]),
+                      torch.zeros_like(pitch))
+    return torch.stack([roll, pitch, yaw], dim=-1)
 
 
 def _qcp_quat_planes(
@@ -206,3 +230,46 @@ def kabsch3_planes(ps, qs):
         for i in range(3)
     )
     return r, t
+
+
+def _sum3(a: torch.Tensor) -> torch.Tensor:
+    """Sum over a last axis of size 3, left to right."""
+    return (a[..., 0] + a[..., 1]) + a[..., 2]
+
+
+def kabsch_quat(
+    src: torch.Tensor, tgt: torch.Tensor, newton_iters: int = 12
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unweighted Horn/QCP absolute orientation of (..., 3, 3) point
+    triples (the gather sampler's solve): (R (..., 3, 3), t (..., 3)).
+    Same optimum as an SVD Kabsch with the reflection fix; degenerate
+    samples give an arbitrary proper rotation."""
+    # A device scalar: PyTorch's CUDA division by a Python number
+    # multiplies by its reciprocal, a second rounding.
+    three = src.new_tensor(3.0)
+    src_mean = torch.stack([_sum3(src[..., c]) for c in range(3)], -1) / three
+    tgt_mean = torch.stack([_sum3(tgt[..., c]) for c in range(3)], -1) / three
+    src_c = src - src_mean[..., None, :]
+    tgt_c = tgt - tgt_mean[..., None, :]
+
+    def corr(i, j):
+        return _sum3(src_c[..., i] * tgt_c[..., j])
+
+    sxx, sxy, sxz = corr(0, 0), corr(0, 1), corr(0, 2)
+    syx, syy, syz = corr(1, 0), corr(1, 1), corr(1, 2)
+    szx, szy, szz = corr(2, 0), corr(2, 1), corr(2, 2)
+    e0 = 0.5 * _sum3(_sum3(src_c * src_c) + _sum3(tgt_c * tgt_c))
+    q0, qx, qy, qz = _qcp_quat_planes(
+        sxx, sxy, sxz, syx, syy, syz, szx, szy, szz, e0, newton_iters
+    )
+    R = torch.stack([
+        torch.stack([q0 * q0 + qx * qx - qy * qy - qz * qz,
+                     2 * (qx * qy - q0 * qz), 2 * (qx * qz + q0 * qy)], -1),
+        torch.stack([2 * (qy * qx + q0 * qz),
+                     q0 * q0 - qx * qx + qy * qy - qz * qz,
+                     2 * (qy * qz - q0 * qx)], -1),
+        torch.stack([2 * (qz * qx - q0 * qy), 2 * (qz * qy + q0 * qx),
+                     q0 * q0 - qx * qx - qy * qy + qz * qz], -1),
+    ], -2)
+    t = tgt_mean - _sum3(R * src_mean[..., None, :])
+    return R, t

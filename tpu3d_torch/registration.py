@@ -124,7 +124,7 @@ def register_prepared(
 ) -> tuple[RegistrationResult, RegistrationResult]:
     """RANSAC + ICP on prepared clouds. Returns (refined, coarse).
     ``draws`` replaces the RANSAC draw stream (see ops/ransac.py)."""
-    two_stage = _two_stage(config.two_stage)
+    two_stage = two_stage_opt(config.two_stage)
     coarse = ransac_registration(
         source,
         target,
@@ -150,7 +150,7 @@ def register_prepared(
     return refined, coarse
 
 
-def _two_stage(v):
+def two_stage_opt(v):
     """Config 'auto'|'on'|'off' (or a bool) → ransac_registration's
     two_stage."""
     if isinstance(v, str):
@@ -204,7 +204,7 @@ def sparse_register_escalated(
     re-run through the dense-prepare corr_mode='auto' arm and the better
     fitness wins. Returns (refined, coarse, escalated); ``draws`` feeds
     both RANSAC runs."""
-    ts = _two_stage(two_stage)
+    ts = two_stage_opt(two_stage)
     sub_c, sub_f, _ = fused_prepare_sparse(src_down, radius,
                                            corr_cap=corr_cap)
     coarse = ransac_registration(
