@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (tpu3d_torch) on one NVIDIA GPU.
 
-  python3 chip_smoke.py [--points N] [--voxel V]
+  python3 chip_smoke.py [--points N] [--voxel V] [--scene-points N]
+                        [--instances B]
 
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi);
@@ -51,13 +52,38 @@ Phases, each fatal on failure:
         quality gate against the identity, and K2-K7 and K9 all launch;
         reported: the stage breakdown (wrappers around the pipeline's own
         functions), cold and warm run times, peak device memory and one
-        run's device-busy time.
-  Kernel and plain times are CUDA events, 2 warm runs, median of 5.
+        run's device-busy time;
+  6. the 1M-point scene of bench.py's extras, at its sizes:
+     a. top-1 NN within 2 mm, 1,048,576 x 1,048,576 (``make_pair(1 << 20,
+        seed=5)``): ``ops.slab.slab_top1`` on the x-sorted points (block
+        256, slice_cap 8,192; its time and overflow flag) and
+        ``ops.nn_walk.slab2_top1`` (block 512, sub 512, K 8; host time
+        with both index builds, K8's launches); the matched set and d²
+        equal slab_top1's on its non-overflowed blocks; K8 against its
+        plain version bit for bit (d² and the index on every row) on the
+        scene's window tables and on queries jittered by 1 mm, with the
+        window rows per block;
+     b. the full 1M pair (``make_pair(1 << 20, seed=7, voxel=0.001)``):
+        the target's dense fused prepare at r = 5 mm and ICP index, then
+        ``fused_prepare_sparse``, RANSAC (100,000 hypotheses, corr_mode
+        'exact') and ICP (<= 50 iterations, the target index): K2-K7
+        launched, the quality gate, warm pairs, stage times, peak memory,
+        device-busy time; then K2-K5 and K7 against their plain versions
+        at these shapes;
+     c. the 64-instance batch (16,384-row target, 64 fused-prepared
+        sources of 8,192 rows at bench.py's rng(1) poses,
+        ``register_batch`` with 4,096 hypotheses and ICP <= 30
+        iterations): every member through the gate, K2-K7 launched;
+     d. the probe (``tpu3d_torch.probe``): each function's kernel against
+        PyTorch on the card within its stated tolerance.
+  Kernel and plain times are CUDA events, 2 warm runs, median of 5
+  (slab_top1 and K8's plain version: 1 warm run, median of 3).
   ``bound_ms`` is the larger of this run's operations over 67 TFLOP/s
   (fp32 without tensor cores) and its bytes (each input read once, each
   output written once) over 3.35 TB/s, an H100 SXM's peaks; K9 also
   reports the floor its expf calls set on the special-function units.
-  ``--points``/``--voxel`` shrink phase 4 for a rehearsal off the card.
+  ``--points``/``--voxel`` shrink phase 4 and ``--scene-points``/
+  ``--instances`` phase 6 for a rehearsal off the card.
 
 Output: progress on stderr; on stdout the nvidia-smi line, a JSON line of
 per-kernel results, one JSON line per route, and last the line
@@ -138,16 +164,20 @@ class Stages:
         return out
 
 
-def pair_times(torch, fn, n):
-    out = []
-    for _ in range(n):
+def host_ms(torch, fn, warm=1, reps=3):
+    """Host-clock milliseconds of synchronised runs of ``fn`` (after
+    ``warm`` runs), and the last result."""
+    out = None
+    for _ in range(warm):
+        out = fn()
+    times = []
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r, _ = fn()
-        float(r.fitness)
+        out = fn()
         torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) * 1e3)
-    return out
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, out
 
 
 def gate(np, refined, R_true, t_true):
@@ -160,8 +190,9 @@ def gate(np, refined, R_true, t_true):
     return rot, trn
 
 
-def nn_phase(torch, nn, q, qmask, t, m, suffix, entry):
-    """K5 kernel against its plain version and the library call.
+def nn_phase(torch, nn, q, qmask, t, m, suffix, entry, library=True):
+    """K5 kernel against its plain version and, with ``library``, the
+    library call.
 
     Each version picks the least d² in its own fp32 rounding of
     ‖t‖² − 2t·q, so the two may pick different rows among near-equal
@@ -197,6 +228,9 @@ def nn_phase(torch, nn, q, qmask, t, m, suffix, entry):
             torch, lambda: nn.nearest_neighbor_plain(q, t, m)),
         f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by,
     })
+    if not library:
+        entry[f"library_ms{suffix}"] = None
+        return
     tm = torch.where(m[:, None], t, 1.0e6)
     tn = (tm * tm).sum(1)
 
@@ -346,7 +380,7 @@ def reference_route(torch, np, dev):
     for k, n in zip((k5, k6, k7), launches):
         k["launches" + sfx] = n
     rot_err, trn_err = gate(np, refined, R_true, t_true)
-    times = [first_ms] + pair_times(torch, pair, 2)
+    times = [first_ms] + host_ms(torch, pair, warm=0, reps=2)[0]
 
     stage = Stages(torch)
     s_d = stage("downsample_ms", lambda: (downsample_bucketed(src, cfg),
@@ -372,6 +406,17 @@ def reference_route(torch, np, dev):
     return k5, k6, k7, route
 
 
+def covered_columns(torch, lo, ln, m):
+    """Columns of an m-column operand that some window [lo, lo + ln)
+    covers."""
+    live = ln > 0
+    ones = torch.ones(int(live.sum()), dtype=torch.int64, device=lo.device)
+    diff = torch.zeros(m + 1, dtype=torch.int64, device=lo.device)
+    diff.index_add_(0, lo[live].long(), ones)
+    diff.index_add_(0, (lo + ln)[live].long(), -ones)
+    return int((diff.cumsum(0)[:m] > 0).sum())
+
+
 def sweep_bytes(torch, q_rows, packed, lo, ln, block, out_values,
                 every_query):
     """Bytes a prepare sweep must move: the ``q_rows`` query planes it
@@ -379,13 +424,8 @@ def sweep_bytes(torch, q_rows, packed, lo, ln, block, out_values,
     window), the candidate planes' columns that some window covers, the
     window tables, and the ``out_values`` per row it returns."""
     nbk, mp = lo.shape[0], packed.shape[1]
-    live = ln > 0
-    q_blocks = nbk if every_query else int(live.any(1).sum())
-    ones = torch.ones(int(live.sum()), dtype=torch.int64, device=lo.device)
-    diff = torch.zeros(mp + 1, dtype=torch.int64, device=lo.device)
-    diff.index_add_(0, lo[live].long(), ones)
-    diff.index_add_(0, (lo + ln)[live].long(), -ones)
-    covered = int((diff.cumsum(0)[:mp] > 0).sum())
+    q_blocks = nbk if every_query else int((ln > 0).any(1).sum())
+    covered = covered_columns(torch, lo, ln, mp)
     return 4 * (q_rows * q_blocks * block + packed.shape[0] * covered
                 + out_values * mp) + nbytes(lo, ln)
 
@@ -610,7 +650,7 @@ def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7):
         f"{float(refined.rmse):.6f}, coarse fitness "
         f"{float(coarse.fitness):.5f}; pose error rot {rot_err:.2e} trans "
         f"{trn_err:.2e} m")
-    times = [first_ms] + pair_times(torch, pair, 3)
+    times = [first_ms] + host_ms(torch, pair, warm=0, reps=3)[0]
 
     stage = Stages(torch)
     s_d = stage("downsample_ms", lambda: (reg.downsample_bucketed(src, cfg),
@@ -983,6 +1023,372 @@ def pipeline_phase(torch, np, counters, k9):
     return cli, route
 
 
+# --------------------------------------------------------------------------
+# Phase 6: the 1M-point scene
+# --------------------------------------------------------------------------
+
+
+def walk_phase(torch, nn_walk, q4, packed, lo, ln, r2, block, sub, sfx,
+               entry, timed):
+    """K8 against its plain version on one set of window tables: d² and
+    the index bit for bit on every row (rows without a match included)."""
+    kd, ki = nn_walk.top1_walk(q4, packed, lo, ln, r2, block, sub)
+    pd, pi = nn_walk.top1_walk_plain(q4, packed, lo, ln, r2, block)
+    torch.cuda.synchronize()
+    n_idx = int((ki != pi).sum())
+    err = float((kd - pd).abs().max())
+    matched = int((pd < 1e29).sum())
+    rows = ln.sum(1)
+    valid_b = (q4[3] > 0.5).reshape(-1, block).sum(1)
+    pairs = int((valid_b * rows).sum())
+    log(f"K8{sfx}: {q4.shape[1]} queries x {packed.shape[1]} targets, "
+        f"block {block}, K {lo.shape[1]}: {matched} matched, idx differing "
+        f"on {n_idx} rows, d2 equal {torch.equal(kd, pd)}; window rows per "
+        f"block mean {float(rows.float().mean()):.1f} max {int(rows.max())}, "
+        f"longest window {int(ln.max())}, live windows per block mean "
+        f"{float((ln > 0).sum(1).float().mean()):.2f}; {pairs} pairs")
+    check(n_idx == 0 and torch.equal(kd, pd),
+          f"K8{sfx} differs from its plain version")
+    entry.update({
+        f"max_abs_err{sfx}": err, f"idx_differing{sfx}": n_idx,
+        f"matched{sfx}": matched, f"pairs{sfx}": pairs,
+        f"window_rows_mean{sfx}": float(rows.float().mean()),
+        f"window_rows_max{sfx}": int(rows.max()),
+        f"longest_window{sfx}": int(ln.max()),
+    })
+    if not timed:
+        return
+    # ~9 operations per (query, window row) pair; bytes: the query planes,
+    # the packed planes' covered columns, the window tables, d² and idx.
+    b_ms, b_by = bound(9.0 * pairs, 4 * (
+        4 * q4.shape[1] + 4 * covered_columns(torch, lo, ln, packed.shape[1])
+        + 2 * q4.shape[1]) + nbytes(lo, ln))
+    entry.update({
+        f"ms{sfx}": cuda_ms(torch, lambda: nn_walk.top1_walk(
+            q4, packed, lo, ln, r2, block, sub)),
+        f"plain_ms{sfx}": cuda_ms(torch, lambda: nn_walk.top1_walk_plain(
+            q4, packed, lo, ln, r2, block), warm=1, reps=3),
+        f"bound_ms{sfx}": b_ms, f"bound_by{sfx}": b_by,
+        f"library_ms{sfx}": None,
+    })
+    entry[f"share{sfx}"] = b_ms / entry["ms" + sfx]
+    log(f"K8{sfx}: kernel {entry['ms' + sfx]:.4f} ms, plain "
+        f"{entry['plain_ms' + sfx]:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+        f"share {entry['share' + sfx]:.3f}")
+
+
+def scene_nn(torch, np, dev, n, k8):
+    """6a: top-1 NN within 2 mm, 1M x 1M, as bench.py's extra runs it:
+    slab_top1 on the x-sorted points, slab2_top1 (K8) on the raw ones."""
+    from tpu3d_torch.models.fixtures import make_pair
+    from tpu3d_torch.ops import nn_walk, slab
+
+    radius, block, sub, k_windows = 0.002, 512, 512, 8
+    r2 = float(np.float32(radius) * np.float32(radius))
+    src_np, _, _, _ = make_pair(n, seed=5)
+    perm = np.argsort(src_np[:, 0], kind="stable")
+    pts = torch.from_numpy(src_np[perm]).to(dev)
+    raw = torch.from_numpy(src_np).to(dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+
+    sl = slab.build_slab(pts, mask)
+    slab_ms = cuda_ms(torch, lambda: slab.slab_top1(sl, pts, radius,
+                                                    slice_cap=8192),
+                      warm=1, reps=3)
+    s_idx, s_d2, s_ovf = slab.slab_top1(sl, pts, radius, slice_cap=8192)
+
+    def pass_():
+        return nn_walk.slab2_top1(raw, mask, raw, mask, radius, block=block,
+                                  sub=sub, k_windows=k_windows)
+
+    pass_()  # warm
+    k8["launches"] = 0
+    nn_walk.top1_walk.launches = 0
+    times, (w_idx, w_d2) = host_ms(torch, pass_, warm=0, reps=3)
+    launches = nn_walk.top1_walk.launches
+    check(launches == 3, f"K8 launched {launches} times in 3 passes")
+    k8["launches"] = launches // 3
+
+    # The matched set and d² agree with slab_top1's on blocks within its
+    # slice_cap (here the queries are the targets: every row matches).
+    _, length = slab.block_slices(sl, pts.reshape(-1, 256, 3)[..., 0], radius)
+    ok = (length <= 8192).repeat_interleave(256)[:n]
+    perm_t = torch.from_numpy(perm).to(dev)
+    w_d2_s = w_d2[perm_t]
+    s_m, w_m = s_d2 < 1e29, w_d2_s < 1e29
+    check(torch.equal(s_m[ok], w_m[ok]), "slab2_top1 and slab_top1 match "
+          "different rows")
+    check(torch.equal(s_d2[ok & s_m], w_d2_s[ok & s_m]),
+          "slab2_top1 and slab_top1 differ in d2")
+    log(f"1M scene: slab_top1 {slab_ms:.2f} ms/pass (overflow "
+        f"{bool(s_ovf)}, {int((~ok).sum())} rows in overflowed blocks), "
+        f"slab2_top1 with both index builds {statistics.median(times):.2f} "
+        f"ms/pass, {int(w_m.sum())} of {n} matched")
+
+    wt = nn_walk.build_walk_target(raw, mask, radius)
+    r = np.float32(radius)
+    nb_r = int(torch.ceil(torch.tensor(r) * wt.inv_w.cpu()[0]))
+    q4, lo, ln, _ = nn_walk.walk_operands(wt, raw, mask, radius, block,
+                                          k_windows)
+    walk_phase(torch, nn_walk, q4, wt.packed, lo, ln, r2, block, sub, "",
+               k8, True)
+    # Queries off the points (1 mm jitter): real searches, some with no
+    # target within the radius.
+    jit = raw + torch.from_numpy(np.random.default_rng(6).normal(
+        0, 0.001, (n, 3)).astype(np.float32)).to(dev)
+    q4j, loj, lnj, _ = nn_walk.walk_operands(wt, jit, mask, radius, block,
+                                             k_windows)
+    walk_phase(torch, nn_walk, q4j, wt.packed, loj, lnj, r2, block, sub,
+               "_jittered", k8, False)
+    return {
+        "route": "1M scene, NN", "fixture": f"make_pair({n}, seed=5)",
+        "radius": radius, "block": block, "sub": sub,
+        "k_windows": k_windows, "nb_r": nb_r,
+        "slab_top1_ms": slab_ms, "slab_top1_overflow": bool(s_ovf),
+        "slab2_top1_host_ms": times,
+        "slab2_top1_host_ms_median": statistics.median(times),
+        "matched": int(w_m.sum()),
+    }
+
+
+def scene_pair(torch, np, dev, n, entries, counters):
+    """6b: the full 1M pair (bench.py's extra): the target's dense fused
+    prepare and ICP index, then per pair the sparse source prepare, RANSAC
+    (100,000 hypotheses, corr_mode 'exact') and ICP (<= 50 iterations)."""
+    from tpu3d_torch import PointCloud
+    from tpu3d_torch.models.fixtures import make_pair
+    from tpu3d_torch.ops import (
+        features,
+        fused_features,
+        icp,
+        icp_stats,
+        nn,
+        ransac,
+    )
+
+    e2, e3, e4, k5, k6, k7 = entries
+    voxel = 0.001
+    radius = float(np.float32(voxel * 5))
+    r2 = float(np.float32(radius) * np.float32(radius))
+    src_np, tgt_np, R_true, t_true = make_pair(n, seed=7, voxel=voxel)
+    src = PointCloud.from_numpy(src_np, capacity=n, device=dev)
+    tgt = PointCloud.from_numpy(tgt_np, capacity=n, device=dev)
+
+    def pair(tgt_p, tgt_f, index):
+        sub_c, sub_f, _ = fused_features.fused_prepare_sparse(src, radius)
+        c = ransac.ransac_registration(sub_c, tgt_p, sub_f, tgt_f, voxel,
+                                       max_iterations=100000,
+                                       corr_mode="exact")
+        r = icp.icp_refine(src, tgt_p, c.transformation, voxel * 0.4,
+                           max_iterations=50, point_to_plane=True,
+                           target_index=index)
+        return r, c
+
+    # The main path once, from the target's prepare, with the counts.
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    stage = Stages(torch)
+    tgt_p, tgt_f = stage("prepare_target_ms", lambda: (
+        fused_features.fused_prepare_features(tgt, radius)))
+    index = stage("icp_index_ms", lambda: icp.build_icp_target(tgt_p))
+    refined, coarse = stage("first_pair_ms",
+                            lambda: pair(tgt_p, tgt_f, index))
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    launches = launch_counts(counters)
+    log(f"1M pair: launches {launches}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel did not launch: {launches}")
+    rot_err, trn_err = gate(np, refined, R_true, t_true)
+    log(f"1M pair: refined fitness {float(refined.fitness):.5f}, coarse "
+        f"{float(coarse.fitness):.5f}; pose error rot {rot_err:.2e} trans "
+        f"{trn_err:.2e} m; peak {peak_mb:.1f} MB")
+
+    def one():
+        return pair(tgt_p, tgt_f, index)
+
+    times, _ = host_ms(torch, one, warm=0, reps=3)
+    s_p = stage("prepare_source_sparse_ms",
+                lambda: fused_features.fused_prepare_sparse(src, radius))
+    co = stage("ransac_ms", lambda: ransac.ransac_registration(
+        s_p[0], tgt_p, s_p[1], tgt_f, voxel, max_iterations=100000,
+        corr_mode="exact"))
+    stage("icp_ms", lambda: icp.icp_refine(
+        src, tgt_p, co.transformation, voxel * 0.4, max_iterations=50,
+        point_to_plane=True, target_index=index))
+    busy = device_busy_ms(torch, one)
+
+    # K2-K5 and K7 against their plain versions at this path's shapes (K6
+    # sees the same shapes as at 100,352 points: the 8,192-row subset).
+    # K5's library call would build a (8,192 x 1,048,576) fp32 matrix, 34
+    # GB: not timed here.
+    al, lo, ln = fused_features.aligned_layout(tgt, radius, 128)
+    prepare_sweeps(torch, features, fused_features, al, lo, (ln, ln, ln),
+                   128, r2, (e2, e3, e4), "_1m")
+    al, lo, ln = fused_features.aligned_layout(src, radius, 256)
+    lens = fused_features.member_lengths(lo, ln, 256, 8192 // 256)[:3]
+    prepare_sweeps(torch, features, fused_features, al, lo, lens, 256, r2,
+                   (e2, e3, e4), "_sparse256_1m")
+    sub_c, sub_f, _ = s_p
+    nn_phase(torch, nn, sub_f.descriptors, sub_f.mask, tgt_f.descriptors,
+             tgt_f.mask, "_1m", k5, library=False)
+    T_true = torch.eye(4, device=dev)
+    T_true[:3, :3] = torch.from_numpy(R_true).to(dev)
+    T_true[:3, 3] = torch.from_numpy(t_true).to(dev)
+    stride = ransac.decimation_stride(n, 16384)
+    icp_phase(torch, icp, icp_stats, index,
+              src.points[: stride * 16384: stride],
+              src.mask[: stride * 16384: stride], T_true, voxel * 0.4,
+              "_1m", k7)
+    for e, name in zip(entries, counters):
+        e["launches_1m_pair"] = launches[name]
+    return {
+        "route": "1M pair", "main_path": "fused_prepare_features, "
+        "build_icp_target, then fused_prepare_sparse, ransac_registration, "
+        "icp_refine",
+        "fixture": f"make_pair({n}, seed=7, voxel={voxel})",
+        "pair_ms": times, "pair_ms_median": statistics.median(times),
+        "stages_ms": stage.ms, "fitness": float(refined.fitness),
+        "coarse_fitness": float(coarse.fitness), "rot_err": rot_err,
+        "trans_err": trn_err, "launches": launches, "peak_mem_mb": peak_mb,
+        "device_busy_ms": busy,
+    }
+
+
+def scene_batch(torch, np, dev, n_inst, entries, counters):
+    """6c: the 64-instance batch (bench.py's extra, its rng(1) poses):
+    sources of 8,192 rows drawn from a 16,384-row target, each fused-
+    prepared, registered by register_batch; every member's pose against
+    its true [Rb | tb]."""
+    from tpu3d_torch import FPFHFeatures, PointCloud
+    from tpu3d_torch.models.fixtures import make_pair
+    from tpu3d_torch.ops import fused_features
+    from tpu3d_torch.parallel.batched import register_batch, stack_clouds
+
+    voxel, ntgt, nsrc = 0.005, 16384, 8192
+    radius = float(np.float32(voxel * 5))
+    _, tgt_np, _, _ = make_pair(ntgt, voxel=voxel)
+    rng = np.random.default_rng(1)
+    poses, src_nps = [], []
+    for _ in range(n_inst):
+        aa = rng.normal(size=3) * 0.15
+        th = np.linalg.norm(aa)
+        k = aa / th
+        K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]],
+                      [-k[1], k[0], 0]])
+        Rb = (np.eye(3) + np.sin(th) * K
+              + (1 - np.cos(th)) * K @ K).astype(np.float32)
+        tb = (rng.normal(size=3) * 0.03).astype(np.float32)
+        sel = rng.choice(ntgt, nsrc, replace=False)
+        poses.append((Rb, tb))
+        src_nps.append((tgt_np[sel] - tb) @ Rb)
+
+    def batch():
+        tgt, tf = fused_features.fused_prepare_features(
+            PointCloud.from_numpy(tgt_np, capacity=ntgt, device=dev), radius)
+        srcs, feats = [], []
+        for s in src_nps:
+            c, fe = fused_features.fused_prepare_features(
+                PointCloud.from_numpy(s, capacity=nsrc, device=dev), radius)
+            srcs.append(c)
+            feats.append(fe)
+        fb = FPFHFeatures(torch.stack([f.descriptors for f in feats]),
+                          torch.stack([f.mask for f in feats]))
+        return register_batch(stack_clouds(srcs), tgt, fb, tf, voxel,
+                              ransac_max_iterations=4096,
+                              icp_max_iterations=30)
+
+    batch()  # warm
+    reset_counts(counters)
+    times, (refined, _) = host_ms(torch, batch, warm=0, reps=1)
+    launches = launch_counts(counters)
+    T = refined.transformation.cpu().numpy()
+    fit = refined.fitness.cpu().numpy()
+    errs = [(float(np.abs(T[b, :3, :3] - Rb).max()),
+             float(np.abs(T[b, :3, 3] - tb).max()))
+            for b, (Rb, tb) in enumerate(poses)]
+    failed = [b for b, (rot, trn) in enumerate(errs)
+              if not (np.isfinite(T[b]).all() and rot < 0.02 and trn < 0.005)]
+    log(f"64 batch: {times[0]:.1f} ms ({n_inst / times[0] * 1e3:.1f} "
+        f"instances/s), mean fitness {float(fit.mean()):.4f}, worst pose "
+        f"error rot {max(e[0] for e in errs):.2e} trans "
+        f"{max(e[1] for e in errs):.2e} m, launches {launches}")
+    check(not failed, f"batch members {failed} failed the gate: "
+          f"{[errs[b] for b in failed]}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel did not launch: {launches}")
+    for e, name in zip(entries, counters):
+        e["launches_batch"] = launches[name]
+    return {
+        "route": "64-instance batch",
+        "main_path": "fused_prepare_features x 65, register_batch",
+        "fixture": f"make_pair({ntgt}, voxel={voxel}), {n_inst} sources of "
+                   f"{nsrc} rows, rng(1) poses",
+        "batch_ms": times[0], "instances_per_s": n_inst / times[0] * 1e3,
+        "fitness_mean": float(fit.mean()), "fitness_min": float(fit.min()),
+        "rot_err_max": max(e[0] for e in errs),
+        "trans_err_max": max(e[1] for e in errs), "launches": launches,
+    }
+
+
+def probe_phase(torch, dev):
+    """6d: the probe's kernels against PyTorch on the card."""
+    from tpu3d_torch import probe
+
+    for f in probe.WRAPPERS.values():
+        f.launches = 0
+    results = probe.run(dev)
+    torch.cuda.synchronize()
+    launches = {n: f.launches for n, f in probe.WRAPPERS.items()}
+    for r in results:
+        log(f"probe {r['name']}: {'OK' if r['ok'] else 'FAIL'} (max "
+            f"{r['unit']} {r['err']:.3g}, tolerance {r['tol']:.3g})")
+    bad = [r["name"] for r in results if not r["ok"]]
+    check(not bad, f"probe functions disagree with PyTorch: {bad}")
+    check(all(v > 0 for v in launches.values()),
+          f"a probe kernel did not launch: {launches}")
+    x, y, a = probe.probe_inputs(dev)
+    reads = {"dot_axis0": (a, y), "transpose": (y,)}
+    wrapper = {"argmin": "row_argmin", "cumsum": "row_cumsum",
+               "dot_axis0": "dot_axis0", "transpose": "transpose"}
+    entries = []
+    for (name, kern, plain, _), r in zip(probe.cases(dev), results):
+        ins = reads.get(name, (x,))
+        out = kern()
+        # Each input read once, the output written once; the product does
+        # 2 operations per term, the others about one per element.
+        ops = (2.0 * a.shape[0] * out.numel() if name == "dot_axis0"
+               else float(ins[0].numel()))
+        b_ms, b_by = bound(ops, nbytes(*ins, out))
+        plain_ms = cuda_ms(torch, plain)
+        entries.append({
+            "name": f"probe {name}", "route": "cuda",
+            "source": "tpu3d_torch/csrc/probe.cu",
+            "replaces": "benchmarks/pallas_probe.py:12",
+            "launches": launches[wrapper.get(name, "unary")],
+            "max_abs_err": r["err"], "err_unit": r["unit"],
+            "tolerance": r["tol"], "ms": cuda_ms(torch, kern),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            # The plain version is the one PyTorch call.
+            "library_ms": plain_ms,
+        })
+    return entries
+
+
+def scene_phase(torch, np, dev, args, entries, counters):
+    """Phase 6: the 1M-point scene (6a-6c) and the probe (6d). ``entries``
+    are the kernels lines' K2-K7 entries, ``counters`` their wrappers, in
+    the same order."""
+    k8 = {"name": "nn_walk_top1 (K8, with the K1 walk)", "route": "cuda",
+          "source": "tpu3d_torch/csrc/nn_walk.cu",
+          "replaces": "tpu3d/ops/nn_walk.py:140"}
+    nn_route = scene_nn(torch, np, dev, args.scene_points, k8)
+    pair_route = scene_pair(torch, np, dev, args.scene_points, entries,
+                            counters)
+    batch_route = scene_batch(torch, np, dev, args.instances, entries,
+                              counters)
+    return k8, probe_phase(torch, dev), [nn_route, pair_route, batch_route]
+
+
 def run(args):
     import numpy as np
     import torch
@@ -1041,12 +1447,15 @@ def run(args):
     for entry, name in zip(kernels, counters):
         entry["launches_pipeline"] = bin_route["launches"][name]
         entry["launches_cli"] = cli["launches"][name]
+    k8, probe_entries, scene_routes = scene_phase(
+        torch, np, dev, args, sweeps + [k5, k6, k7],
+        {k: f for k, f in counters.items() if k != "K9"})
+    k8["card"] = smi
 
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps(ref_route), flush=True)
-    print(json.dumps(scale_route), flush=True)
-    print(json.dumps(cli), flush=True)
-    print(json.dumps(bin_route), flush=True)
+    print(json.dumps({"kernels": kernels + [k8] + probe_entries}),
+          flush=True)
+    for route in [ref_route, scale_route, cli, bin_route] + scene_routes:
+        print(json.dumps(route), flush=True)
     return {
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1060,6 +1469,10 @@ def main() -> int:
                     help="points of the at-scale pair (make_pair)")
     ap.add_argument("--voxel", type=float, default=0.002,
                     help="voxel size of the at-scale pair")
+    ap.add_argument("--scene-points", type=int, default=1 << 20,
+                    help="points of the 1M scene (phase 6a and 6b)")
+    ap.add_argument("--instances", type=int, default=64,
+                    help="instances of the batch (phase 6c)")
     args = ap.parse_args()
     try:
         import torch

@@ -46,3 +46,21 @@ def test_concurrent_first_calls_build_once(monkeypatch):
     assert len(libs) == 32 and all(lib is libs[0] for lib in libs)
     assert libs[0].tpu3d_bilateral_filter.argtypes == build.SIGNATURES[
         "tpu3d_bilateral_filter"]
+
+
+def test_signatures_name_every_entry_point():
+    """The library binds K8's and the probe's C entry points beside the
+    earlier kernels'."""
+    for name in ("tpu3d_nn_top1", "tpu3d_ransac_score",
+                 "tpu3d_icp_p2plane_stats", "tpu3d_moments_sweep",
+                 "tpu3d_spfh_sweep", "tpu3d_fpfh_sweep",
+                 "tpu3d_bilateral_filter", "tpu3d_nn_walk_top1",
+                 "tpu3d_probe_unary", "tpu3d_probe_argmin",
+                 "tpu3d_probe_cumsum", "tpu3d_probe_dot_axis0",
+                 "tpu3d_probe_transpose"):
+        assert name in build.SIGNATURES, name
+    # q4, packed, lo, len, then qp, m, nb, k, block, sub, r2, d2, idx, stream
+    assert build.SIGNATURES["tpu3d_nn_walk_top1"] == [
+        build._P] * 4 + [build._I] * 6 + [build._F] + [build._P] * 3
+    sources = {p.name for p in build._sources()}
+    assert {"nn_walk.cu", "probe.cu"} <= sources

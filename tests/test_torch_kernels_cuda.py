@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K2-K7, K9) against their plain PyTorch
-versions, and the pipeline's routes, on the card. Every test here needs a
-CUDA device and skips without one.
+"""The port's CUDA kernels (K2-K9 and the probe's) against their plain
+PyTorch versions, and the pipeline's routes, on the card. Every test here
+needs a CUDA device and skips without one.
 
 This file imports neither jax nor tpu3d, so it runs where they are not
 installed: ``python -m pytest --noconftest -m cuda
@@ -20,9 +20,11 @@ from tpu3d_torch.ops import (
     icp,
     icp_stats,
     nn,
+    nn_walk,
     ransac,
     ransac_score,
 )
+from tpu3d_torch import probe
 
 pytestmark = pytest.mark.cuda
 
@@ -306,3 +308,82 @@ def test_pipeline_cli_on_card(dev, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "accelerator=on" in out and "Computed 1 pick poses." in out
     assert depth.bilateral_filter.launches == before + 1
+
+
+def _walk_inputs(block, k_windows, seed):
+    """A target with duplicated rows (ties) and a masked tail, and jittered
+    queries with masked rows, as K8's operands (CPU tensors)."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-0.2, 0.2, (3000, 3)).astype(np.float32)
+    t = np.concatenate([base, base[:1000]])
+    tm = np.ones(len(t), bool)
+    tm[-300:] = False
+    q = (t[::2] + rng.normal(0, 0.004, t[::2].shape)).astype(np.float32)
+    qm = rng.uniform(size=len(q)) > 0.1
+    wt = nn_walk.build_walk_target(torch.from_numpy(t), torch.from_numpy(tm),
+                                   0.01)
+    q4, lo, ln, _ = nn_walk.walk_operands(wt, torch.from_numpy(q),
+                                          torch.from_numpy(qm), 0.01, block,
+                                          k_windows)
+    return q4, wt.packed, lo, ln, float(np.float32(0.01) ** 2)
+
+
+@pytest.mark.parametrize("block", [128, 256, 512])
+@pytest.mark.parametrize("k_windows", [3, 8, 10])
+def test_nn_walk_kernel_matches_plain(dev, block, k_windows):
+    """K8 equals its plain version bit for bit: d2, and the index on every
+    row, rows without a match included."""
+    args = _walk_inputs(block, k_windows, block + k_windows)
+    pd, pi = nn_walk.top1_walk(*args, block)
+    before = nn_walk.top1_walk.launches
+    kd, ki = nn_walk.top1_walk(*(a.to(dev) for a in args[:4]), args[4],
+                               block, sub=block)
+    torch.cuda.synchronize()
+    assert nn_walk.top1_walk.launches == before + 1
+    assert ki.dtype == torch.int32 and kd.dtype == torch.float32
+    matched = pd < 1e29
+    assert 0 < int(matched.sum()) < matched.numel()
+    assert torch.equal(ki.cpu(), pi)
+    assert torch.equal(kd.cpu(), pd)
+
+
+def test_nn_walk_kernel_rejects_bad_inputs(dev):
+    q4, packed, lo, ln, r2 = (a.to(dev) if torch.is_tensor(a) else a
+                              for a in _walk_inputs(128, 8, 0))
+    with pytest.raises(ValueError, match="block"):
+        nn_walk.top1_walk(q4, packed, lo, ln, r2, 64)
+    with pytest.raises(TypeError):
+        nn_walk.top1_walk(q4.double(), packed.double(), lo, ln, r2, 128)
+    huge = torch.zeros((4, 1), device=dev).expand(4, 1 << 24)
+    with pytest.raises(ValueError, match="2\\^24"):
+        nn_walk.top1_walk(q4, huge, lo, ln, r2, 128)
+
+
+def test_slab2_top1_on_card(dev):
+    """The entry point on the card equals its CPU run, index and d²."""
+    src, tgt, _, _ = make_pair(30000, seed=5)
+    m = torch.ones(30000, dtype=torch.bool)
+    args = (torch.from_numpy(src), m, torch.from_numpy(tgt), m, 0.004)
+    pi, pd = nn_walk.slab2_top1(*args, block=512, sub=512, k_windows=8)
+    before = nn_walk.top1_walk.launches
+    ki, kd = nn_walk.slab2_top1(*(a.to(dev) if torch.is_tensor(a) else a
+                                  for a in args),
+                                block=512, sub=512, k_windows=8)
+    torch.cuda.synchronize()
+    assert nn_walk.top1_walk.launches == before + 1
+    assert torch.equal(ki.cpu(), pi) and torch.equal(kd.cpu(), pd)
+
+
+def test_probe_kernels_match_pytorch(dev):
+    before = {n: f.launches for n, f in probe.WRAPPERS.items()}
+    results = probe.run(dev)
+    torch.cuda.synchronize()
+    assert all(r["ok"] for r in results), results
+    assert all(f.launches > before[n] for n, f in probe.WRAPPERS.items())
+    # argmin with ties: the lowest index, as torch.argmin.
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(0, 5, (64, 1000), generator=g).float()
+    assert torch.equal(probe.row_argmin(x.to(dev)).cpu(),
+                       probe.row_argmin_plain(x))
+    big = torch.rand(300, 300, generator=g)
+    assert torch.equal(probe.transpose(big.to(dev)).cpu(), big.T)

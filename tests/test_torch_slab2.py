@@ -75,3 +75,90 @@ def test_sorted_positions_and_qy_match_jax(rng, side):
         slab2._qy_of(torch.from_numpy(y), float(y0), float(scale)).numpy(),
         np.asarray(jslab2._qy_of(jnp.asarray(y), y0, scale)),
     )
+
+
+# --------------------------------------------------------------------------
+# The plain layout: build_slab2, query_keys, block_windows
+# --------------------------------------------------------------------------
+
+
+def _plain_cloud(case, rng):
+    """(points, mask, bucket width, radius, block, k_max, sorted queries):
+    ``sorted_queries`` False feeds block_windows the rows in their random
+    order, so blocks span many buckets and the overflow window is live."""
+    n = 4096
+    pts, mask = _surface(rng, 3900, n)
+    width, radius, block, k_max, sorted_q = 0.02, 0.02, 128, 10, True
+    if case == "masked-rows":
+        mask &= rng.uniform(size=n) > 0.2
+    elif case == "degenerate-x":
+        pts[:, 0] = 0.125
+    elif case == "degenerate-xy":
+        pts[:, :2] = np.float32([0.125, -0.25])
+    elif case == "overflow-window":
+        k_max, sorted_q = 3, False
+    elif case == "widened-buckets":
+        width = radius = 1e-5  # 40,000 buckets over the x-extent → 2,047
+    elif case == "block-512-k8":
+        block, k_max = 512, 8
+    return pts, mask, width, radius, block, k_max, sorted_q
+
+
+PLAIN_CASES = ["masked-rows", "degenerate-x", "degenerate-xy",
+               "overflow-window", "widened-buckets", "block-512-k8"]
+
+
+@pytest.mark.parametrize("case", PLAIN_CASES)
+def test_plain_slab2_and_windows_match_jax(case):
+    rng = np.random.default_rng(11)
+    pts, mask, width, radius, block, k_max, sorted_q = _plain_cloud(case,
+                                                                    rng)
+    w = np.float32(width)
+    ref = jslab2.build_slab2(jnp.asarray(pts), jnp.asarray(mask), w)
+    got = slab2.build_slab2(torch.from_numpy(pts), torch.from_numpy(mask),
+                            float(w))
+    for field in got._fields:
+        a = np.asarray(getattr(ref, field))
+        b = getattr(got, field).numpy()
+        assert a.shape == b.shape, field
+        np.testing.assert_array_equal(b.astype(a.dtype), a, err_msg=field)
+    np.testing.assert_array_equal(got.sorted_points_t.numpy().T,
+                                  np.asarray(ref.sorted_points))
+
+    # Queries: the cloud itself, jittered, with its own mask; blocks of the
+    # key-sorted queries (as slab2_top1 forms them) or of the raw rows.
+    q = (pts + rng.normal(0, 0.003, pts.shape)).astype(np.float32)
+    qm = rng.uniform(size=len(q)) > 0.1
+    qm[-2 * block:] = False  # whole blocks of invalid queries
+    np.testing.assert_array_equal(
+        slab2.query_keys(got, torch.from_numpy(q),
+                         torch.from_numpy(qm)).numpy(),
+        np.asarray(jslab2.query_keys(ref, jnp.asarray(q), jnp.asarray(qm))))
+    if sorted_q:
+        qslab = jslab2.build_slab2(jnp.asarray(q), jnp.asarray(qm),
+                                   np.float32(radius))
+        q = np.array(qslab.sorted_points)
+        qm = np.array(qslab.valid_sorted)
+    qb = q.reshape(-1, block, 3)
+    mb = qm.reshape(-1, block)
+    r = np.float32(radius)
+    jlo, jln = jslab2.block_windows(
+        ref, (jnp.asarray(qb[..., 0]), jnp.asarray(qb[..., 1])),
+        jnp.asarray(mb), r, k_max=k_max)
+    lo, ln = slab2.block_windows(
+        got, (torch.from_numpy(qb[..., 0]), torch.from_numpy(qb[..., 1])),
+        torch.from_numpy(mb), float(r), k_max=k_max)
+    assert lo.dtype == ln.dtype == torch.int32
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(ln.numpy(), np.asarray(jln))
+    # The cases reach what they are named for.
+    ln_np = ln.numpy()
+    assert (ln_np == 0).any() and ln_np.sum() > 0  # empty windows, lo kept
+    if case == "overflow-window":
+        assert (ln_np[:, -1] > 0).any()
+    if case == "widened-buckets":
+        assert float(got.inv_w) < 1.0 / float(w)
+    # The (nb, B, 3) form gives the same tables.
+    lo3, ln3 = slab2.block_windows(got, torch.from_numpy(qb),
+                                   torch.from_numpy(mb), float(r), k_max)
+    assert torch.equal(lo3, lo) and torch.equal(ln3, ln)

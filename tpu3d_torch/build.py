@@ -46,6 +46,13 @@ SIGNATURES = {
     "tpu3d_spfh_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "tpu3d_fpfh_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     "tpu3d_bilateral_filter": [_P, _P, _I, _I, _I, _D, _F, _P],
+    "tpu3d_nn_walk_top1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
+                           _P, _P],
+    "tpu3d_probe_unary": [_P, _I, _I, _P, _P],
+    "tpu3d_probe_argmin": [_P, _I, _I, _P, _P],
+    "tpu3d_probe_cumsum": [_P, _I, _I, _P, _P],
+    "tpu3d_probe_dot_axis0": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "tpu3d_probe_transpose": [_P, _I, _P, _P],
 }
 
 # Serialises the first build: the pipeline's prepare threads can reach

@@ -44,6 +44,7 @@ using tpu3d::div_rn;
 using tpu3d::mul_rn;
 using tpu3d::sub_rn;
 
+constexpr int kWindows = 3;  // the aligned layout's windows per block
 constexpr int kTile = 128;
 constexpr int kMaxBlock = 256;
 constexpr int kThresh = 20;
@@ -180,7 +181,7 @@ moments_kernel(const float* __restrict__ q8, const float* __restrict__ packed,
 #pragma unroll
   for (int i = 0; i < 9; ++i) mom[i] = 0.0f;
   int cnt = 0;
-  tpu3d::window_walk<3, kTile>(packed, m, lo, len, b, tile, [&](int j) {
+  tpu3d::window_walk<kWindows, 3, kTile>(packed, m, lo, len, b, tile, [&](int j) {
     const float tx = tile[0][j];
     const float ty = tile[1][j];
     const float tz = tile[2][j];
@@ -252,7 +253,7 @@ spfh_kernel(const float* __restrict__ q8n, const float* __restrict__ packed,
 #pragma unroll
   for (int i = 0; i < 30; ++i) cum[i] = 0;
   int cnt = 0;
-  tpu3d::window_walk<10, kTile>(packed, m, lo, len, b, tile, [&](int j) {
+  tpu3d::window_walk<kWindows, 10, kTile>(packed, m, lo, len, b, tile, [&](int j) {
     const float t0 = tile[0][j];
     const float t1 = tile[1][j];
     const float t2 = tile[2][j];
@@ -330,7 +331,7 @@ fpfh_kernel(const float* __restrict__ q8, const float* __restrict__ packed,
   float acc[33];
 #pragma unroll
   for (int k = 0; k < 33; ++k) acc[k] = 0.0f;
-  tpu3d::window_walk<36, kTile>(packed, m, lo, len, b, tile, [&](int j) {
+  tpu3d::window_walk<kWindows, 36, kTile>(packed, m, lo, len, b, tile, [&](int j) {
     const float d2 =
         tpu3d::dist2(tile[0][j], tile[1][j], tile[2][j], qx, qy, qz);
     if (d2 <= r2 && d2 >= 1e-16f) {

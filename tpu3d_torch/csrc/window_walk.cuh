@@ -1,15 +1,16 @@
-// K1: the multi-window walk shared by the fused-prepare sweeps (K2-K4).
+// K1: the multi-window walk shared by the fused-prepare sweeps (K2-K4, three
+// windows per block) and the slab2 top-1 walk (K8, k_windows per block).
 //
 // Replaces tpu3d/ops/pallas_walk.py: window_walk / window_walk_vmem. One
 // CUDA block serves one query block of blockDim.x padded rows, one thread
-// per query. For each of the block's kWindows candidate windows
-// [lo, lo + len) of the packed plane-major (R, m) operand, in window order,
-// the block stages tiles of kTile rows into shared memory with coalesced
-// loads (neighbouring threads read neighbouring columns of one plane), and
-// every thread then hands the tile's rows to `consume(j)` in ascending
-// order. A zero-length window costs nothing, which is how the sparse
-// prepare prunes blocks. The order of the walk is fixed, so every sum a
-// sweep takes over it is deterministic.
+// per query. For each of the block's K candidate windows [lo, lo + len) of
+// the packed plane-major (R, m) operand (tables lo/len of shape (nb, K)),
+// in window order, the block stages tiles of kTile rows into shared memory
+// with coalesced loads (neighbouring threads read neighbouring columns of
+// one plane), and every thread then hands the tile's rows to `consume(j)`
+// in ascending order. A zero-length window costs nothing, which is how the
+// sparse prepare prunes blocks. The order of the walk is fixed, so every
+// sum a sweep takes over it is deterministic.
 //
 // The TPU's sub-aligned tile grid and its DMA pipeline were Mosaic rules;
 // here a tile starts wherever the window does.
@@ -19,8 +20,6 @@
 #include <cuda_runtime.h>
 
 namespace tpu3d {
-
-constexpr int kWindows = 3;
 
 // Exactly rounded fp32 arithmetic: no FMA contraction, so every sweep
 // rounds as its plain PyTorch version's separate operations do.
@@ -38,7 +37,7 @@ __device__ __forceinline__ float dist2(float tx, float ty, float tz, float qx,
   return add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
 }
 
-template <int R, int kTile, typename Consume>
+template <int K, int R, int kTile, typename Consume>
 __device__ __forceinline__ void window_walk(const float* __restrict__ packed,
                                             int m, const int* __restrict__ lo,
                                             const int* __restrict__ len, int b,
@@ -47,9 +46,9 @@ __device__ __forceinline__ void window_walk(const float* __restrict__ packed,
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
 #pragma unroll 1
-  for (int k = 0; k < kWindows; ++k) {
-    const int lo_k = lo[b * kWindows + k];
-    const int hi_k = lo_k + len[b * kWindows + k];
+  for (int k = 0; k < K; ++k) {
+    const int lo_k = lo[b * K + k];
+    const int hi_k = lo_k + len[b * K + k];
 #pragma unroll 1
     for (int start = lo_k; start < hi_k; start += kTile) {
       const int nt = min(kTile, hi_k - start);
