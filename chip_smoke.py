@@ -8,7 +8,8 @@ Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from tpu3d_torch/csrc (one nvcc per source, all
      started together, sm_90a) and print the build time and the compiler's
-     per-kernel resource report;
+     per-kernel resource report (registers and spills go into the kernels
+     line);
   3. the reference-parity route at bucket 8,192 (the bench fixture
      ``make_pair(8192, voxel=0.005)``): K5 top-1 NN at D=33 and D=3, K6
      hypothesis scoring (25,600 hypotheses x 2,048 estimate rows, and 32
@@ -27,7 +28,11 @@ Phases, each fatal on failure:
      b. the sparse prepare of the source against the dense prepare at
         block 256, bit for bit on every retained row;
      c. K5, K6 and K7 against their plain versions at this route's shapes,
-        with the library call beside K5 and K6;
+        with the library call beside K5 and K6, and the descriptor
+        correspondence quality of K5's picks and of the plain version's
+        (the share of valid source rows matched within 1.5 x voxel of
+        their true-pose position, benchmarks/nn_precision_quality.py's
+        metric; the kernel's at least the plain version's - 0.002);
      d. ``tpu3d_torch.register_pair``: all six launch counts > 0 in that
         run, the quality gate, the escalation flag, warm pairs, a stage
         breakdown, peak device memory and one pair's device-busy time
@@ -64,12 +69,15 @@ Phases, each fatal on failure:
         scene's window tables and on queries jittered by 1 mm, with the
         window rows per block;
      b. the full 1M pair (``make_pair(1 << 20, seed=7, voxel=0.001)``):
-        the target's dense fused prepare at r = 5 mm and ICP index, then
+        the target's dense fused prepare at r = 5 mm, ICP index and K5
+        target operand (``ransac.with_target_operand``), then
         ``fused_prepare_sparse``, RANSAC (100,000 hypotheses, corr_mode
         'exact') and ICP (<= 50 iterations, the target index): K2-K7
         launched, the quality gate, warm pairs, stage times, peak memory,
         device-busy time; then K2-K5 and K7 against their plain versions
-        at these shapes;
+        at these shapes, K5's descriptor quality as in 4c, and, once the
+        pair's state is freed, K5's library call at Q 8,192 x M 1,048,576
+        (a 34.4 GB product; two query halves where it does not fit);
      c. the 64-instance batch (16,384-row target, 64 fused-prepared
         sources of 8,192 rows at bench.py's rng(1) poses,
         ``register_batch`` with 4,096 hypotheses and ICP <= 30
@@ -82,6 +90,17 @@ Phases, each fatal on failure:
   (fp32 without tensor cores) and its bytes (each input read once, each
   output written once) over 3.35 TB/s, an H100 SXM's peaks; K9 also
   reports the floor its expf calls set on the special-function units.
+  K5 at D > 4 and K6 run 3xTF32 on the tensor cores: ``bound_tc_ms`` is
+  three TF32 passes of their operations over 495 TFLOP/s, beside their
+  split count (``splits``); K5's ``kernel_ms`` times its two launches
+  on packed operands (``ms`` includes the operand pass, and
+  ``ms_packed_targets`` is one call on a target operand built once, as
+  RANSAC makes it), and ``device_ms`` is the device time of one call
+  (torch.profiler), without the host's launch gaps that the CUDA events
+  around one call include. K6 also reports the share of its elements
+  inside the band that it recomputes in fp32, the share of warp steps
+  (8 rows x 32 hypotheses) that hold one, and the elements a warp defers
+  per row slice.
   ``--points``/``--voxel`` shrink phase 4 and ``--scene-points``/
   ``--instances`` phase 6 for a rehearsal off the card.
 
@@ -96,6 +115,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -108,7 +128,24 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 VOXEL = 0.005
 N_POINTS = 8192
 PEAK_FP32 = 67e12  # FLOP/s, H100 SXM without tensor cores
+PEAK_TF32 = 495e12  # FLOP/s, H100 SXM tensor cores in TF32, dense
 PEAK_HBM = 3.35e12  # bytes/s
+
+
+# The kernel functions behind each kernels-line entry (its name before " (").
+KERNEL_FUNCTIONS = {
+    "moments_sweep": ["moments_kernel"], "spfh_sweep": ["spfh_kernel"],
+    "fpfh_sweep": ["fpfh_kernel"],
+    "nn_top1": ["nn_desc_kernel", "nn_desc_reduce", "nn_top1_kernel"],
+    "ransac_score": ["score_tc_kernel", "score_reduce"],
+    "icp_p2plane_stats": ["icp_stats_kernel"],
+    "bilateral_filter": ["bilateral_kernel"],
+    "nn_walk_top1": ["nn_walk_top1_kernel"],
+    "atan2": ["unary_kernel"], "atan": ["unary_kernel"],
+    "acos": ["unary_kernel"], "cos": ["unary_kernel"],
+    "argmin": ["argmin_kernel"], "cumsum": ["cumsum_kernel"],
+    "dot_axis0": ["dot_axis0_kernel"], "transpose": ["transpose_kernel"],
+}
 
 
 def log(*a):
@@ -137,6 +174,41 @@ def bound(flops, nbytes):
     t_ops = flops / PEAK_FP32 * 1e3
     t_bytes = nbytes / PEAK_HBM * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bound_tc(flops):
+    """The tensor-core bound of a 3xTF32 product: three TF32 passes of
+    ``flops`` at the TF32 peak, in ms."""
+    return 3.0 * flops / PEAK_TF32 * 1e3
+
+
+def kernel_resources(report):
+    """{kernel function: {registers, spill_bytes}} from the compiler's
+    ``-Xptxas -v`` report, for the functions of ``KERNEL_FUNCTIONS`` (the
+    largest over a template's instantiations)."""
+    import re
+
+    names = {f for funcs in KERNEL_FUNCTIONS.values() for f in funcs}
+    out, current = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            hits = [n for n in names if n in m.group(1)]
+            current = max(hits, key=len) if hits else None
+            continue
+        if current is None:
+            continue
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       line)
+        if sp:
+            r = out.setdefault(current, {"registers": 0, "spill_bytes": 0})
+            r["spill_bytes"] = max(r["spill_bytes"],
+                                   int(sp.group(1)) + int(sp.group(2)))
+        rg = re.search(r"Used (\d+) registers", line)
+        if rg:
+            r = out.setdefault(current, {"registers": 0, "spill_bytes": 0})
+            r["registers"] = max(r["registers"], int(rg.group(1)))
+    return out
 
 
 def nbytes(*tensors):
@@ -190,15 +262,52 @@ def gate(np, refined, R_true, t_true):
     return rot, trn
 
 
-def nn_phase(torch, nn, q, qmask, t, m, suffix, entry, library=True):
-    """K5 kernel against its plain version and, with ``library``, the
-    library call.
+def descriptor_quality(torch, np, idx, src_pts, qmask, tgt_pts, R, t,
+                       voxel):
+    """Share of valid source rows whose descriptor match lies within
+    1.5 x voxel of the row's true-pose position (the true-inlier
+    correspondence quality of benchmarks/nn_precision_quality.py)."""
+    Rt = torch.from_numpy(np.asarray(R, np.float32)).to(src_pts.device)
+    tt = torch.from_numpy(np.asarray(t, np.float32)).to(src_pts.device)
+    d = (src_pts @ Rt.T + tt - tgt_pts[idx.long()]).norm(dim=1)
+    return float(((d < 1.5 * voxel) & qmask).sum()) / max(int(qmask.sum()), 1)
 
-    Each version picks the least d² in its own fp32 rounding of
-    ‖t‖² − 2t·q, so the two may pick different rows among near-equal
-    candidates (dense descriptor fields have many). Held: the returned d²
-    agree, and on every valid row where the picks differ, the two picks'
-    d² recomputed in float64 differ by at most 1e-6 (a near-tie)."""
+
+def nn_library_ms(torch, q, t, m):
+    """One PyTorch call for K5's function, addmm(...).min(1), timed: (ms,
+    note, halves). Where the card refuses the (Q x M) product for memory,
+    the two query halves are timed one after the other."""
+    tm = torch.where(m[:, None], t, 1.0e6)
+    tn = (tm * tm).sum(1)
+
+    def lib(qq):
+        return torch.addmm(tn[None, :], qq, tm.T, alpha=-2.0).min(dim=1)
+
+    torch.cuda.empty_cache()
+    try:
+        return cuda_ms(torch, lambda: lib(q)), "one call", None
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        h = q.shape[0] // 2
+        halves = [cuda_ms(torch, lambda: lib(q[:h])),
+                  cuda_ms(torch, lambda: lib(q[h:]))]
+        log(f"K5 library call: the {q.shape[0]} x {t.shape[0]} product does "
+            f"not fit; timed two query halves {halves} ms")
+        return sum(halves), "two query halves (out of memory)", halves
+
+
+def nn_phase(torch, nn, q, qmask, t, m, suffix, entry, library=True,
+             quality=None):
+    """K5 kernel against its plain version and, with ``library``, the
+    library call; with ``quality`` (np, source points, target points,
+    R_true, t_true, voxel), the descriptor correspondence quality of both.
+
+    Each version picks the least d² in its own rounding of ‖t‖² − 2t·q
+    (fp32 in the plain version, 3xTF32 in the D > 4 kernel), so the two
+    may pick different rows among near-equal candidates (dense descriptor
+    fields have many). Held: the returned d² agree, and on every valid row
+    where the picks differ, the two picks' d² recomputed in float64 differ
+    by at most 1e-6 (a near-tie)."""
     ki, kd = nn.nearest_neighbor(q, t, m)
     pi, pd = nn.nearest_neighbor_plain(q, t, m)
     torch.cuda.synchronize()
@@ -219,7 +328,8 @@ def nn_phase(torch, nn, q, qmask, t, m, suffix, entry, library=True):
     check(rel <= 1e-5, f"K5{suffix} d2 error {rel}")
     qn, d = q.shape
     mn = t.shape[0]
-    b_ms, b_by = bound(2.0 * qn * mn * d, nbytes(q, t, m, ki, kd))
+    flops = 2.0 * qn * mn * d
+    b_ms, b_by = bound(flops, nbytes(q, t, m, ki, kd))
     entry.update({
         f"max_abs_err{suffix}": err, f"index_agreement{suffix}": agree,
         f"tie_gap{suffix}": tie_gap,
@@ -227,17 +337,59 @@ def nn_phase(torch, nn, q, qmask, t, m, suffix, entry, library=True):
         f"plain_ms{suffix}": cuda_ms(
             torch, lambda: nn.nearest_neighbor_plain(q, t, m)),
         f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by,
+        f"bound_tc_ms{suffix}": None, f"splits{suffix}": None,
     })
+    if d > 4:
+        # The tensor-core route: its bound, its split count, and the two
+        # launches alone on packed operands (ms also packs the operands).
+        qop, top = nn.descriptor_queries(q), nn.descriptor_targets(t, m)
+        entry.update({
+            f"bound_tc_ms{suffix}": bound_tc(flops),
+            f"splits{suffix}": nn.split_plan(qn, mn)[1],
+            f"kernel_ms{suffix}": cuda_ms(
+                torch, lambda: nn.descriptor_top1(q, qop, top, mn)),
+            f"operands_ms{suffix}": cuda_ms(
+                torch, lambda: (nn.descriptor_queries(q),
+                                nn.descriptor_targets(t, m))),
+            f"device_ms{suffix}": per_call_device_ms(
+                torch, lambda: nn.nearest_neighbor(q, t, m)),
+            # One call on a target operand built once, as RANSAC makes it
+            # against a target with its operand attached.
+            f"ms_packed_targets{suffix}": cuda_ms(
+                torch, lambda: nn.nearest_neighbor(q, t, m,
+                                                   packed_targets=top)),
+        })
+        del qop, top
+    ms = entry[f"ms{suffix}"]
+    entry[f"share{suffix}"] = b_ms / ms
+    if entry[f"bound_tc_ms{suffix}"] is not None:
+        entry[f"share_tc{suffix}"] = entry[f"bound_tc_ms{suffix}"] / ms
+    log(f"K5{suffix}: {ms:.4f} ms (kernel "
+        f"{entry.get('kernel_ms' + suffix, ms):.4f}, device "
+        f"{entry.get('device_ms' + suffix, ms):.4f}), plain "
+        f"{entry['plain_ms' + suffix]:.4f}, bound {b_ms:.5f} ({b_by}), "
+        f"tensor-core bound {entry['bound_tc_ms' + suffix]}, splits "
+        f"{entry['splits' + suffix]}")
+    if quality is not None:
+        np_, src_pts, tgt_pts, R, tr, voxel = quality
+        qk = descriptor_quality(torch, np_, ki, src_pts, qmask, tgt_pts, R,
+                                tr, voxel)
+        qp = descriptor_quality(torch, np_, pi, src_pts, qmask, tgt_pts, R,
+                                tr, voxel)
+        entry[f"quality{suffix}"] = qk
+        entry[f"quality_plain{suffix}"] = qp
+        log(f"K5{suffix} descriptor correspondence quality (within 1.5 x "
+            f"voxel of the true pose): kernel {qk:.6f}, plain fp32 {qp:.6f}")
+        check(qk >= qp - 0.002,
+              f"K5{suffix} descriptor quality {qk} below plain {qp} - 0.002")
     if not library:
         entry[f"library_ms{suffix}"] = None
         return
-    tm = torch.where(m[:, None], t, 1.0e6)
-    tn = (tm * tm).sum(1)
-
-    def lib():
-        return torch.addmm(tn[None, :], q, tm.T, alpha=-2.0).min(dim=1)
-
-    entry[f"library_ms{suffix}"] = cuda_ms(torch, lib)
+    lib_ms, note, halves = nn_library_ms(torch, q, t, m)
+    entry[f"library_ms{suffix}"] = lib_ms
+    if halves is not None:
+        entry[f"library_note{suffix}"] = note
+        entry[f"library_halves_ms{suffix}"] = halves
 
 
 def score_phase(torch, ransac_score, args, suffix, entry):
@@ -257,15 +409,48 @@ def score_phase(torch, ransac_score, args, suffix, entry):
     check(dc <= 2 and frac >= 0.99 and e_ok, f"K6{suffix} disagrees")
     ft, pq, w, tn, thr2 = args
     n, h = ft.shape[1], w.shape[1]
-    b_ms, b_by = bound(2.0 * h * n * 16, nbytes(ft, pq, w, tn, kc, ke))
+    flops = 2.0 * h * n * 16
+    b_ms, b_by = bound(flops, nbytes(ft, pq, w, tn, kc, ke))
+    rows, slices = ransac_score.slice_plan(n, h)
+    # The share of (row, hypothesis) elements inside the band that the
+    # kernel recomputes in fp32; the share of warp steps (8 rows x 32
+    # hypotheses) that hold one, each of which a re-check inside the step
+    # would stall; and the elements a warp defers per slice instead.
+    err2 = (ft.T @ w + pq[:, None]) + tn[None, :]
+    band = ((err2 - thr2).abs() <= ransac_score.band_margin(pq, tn)).float()
+    del err2
+    steps = torch.zeros(-(-n // 8) * 8, -(-h // 32) * 32, device=band.device)
+    steps[:n, :h] = band
+    step_share = float(steps.view(steps.shape[0] // 8, 8, -1, 32)
+                       .amax((1, 3)).mean())
+    per_warp = float(band.sum()) / (slices * (steps.shape[1] // 32))
+    del steps
     entry.update({
-        f"max_abs_err{suffix}": dc,
+        f"max_abs_err{suffix}": dc, f"equal_counts{suffix}": frac,
         f"ms{suffix}": cuda_ms(
             torch, lambda: ransac_score.score_hypotheses(*args)),
         f"plain_ms{suffix}": cuda_ms(
             torch, lambda: ransac_score.score_hypotheses_plain(*args)),
         f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by,
+        f"bound_tc_ms{suffix}": bound_tc(flops),
+        f"splits{suffix}": slices, f"rows_per_slice{suffix}": rows,
+        f"blocks{suffix}": slices * -(-h // ransac_score.HYP_TILE),
+        f"band_share{suffix}": float(band.mean()),
+        f"band_step_share{suffix}": step_share,
+        f"band_per_warp_slice{suffix}": per_warp,
+        f"device_ms{suffix}": per_call_device_ms(
+            torch, lambda: ransac_score.score_hypotheses(*args)),
     })
+    ms = entry[f"ms{suffix}"]
+    entry[f"share{suffix}"] = b_ms / ms
+    entry[f"share_tc{suffix}"] = entry[f"bound_tc_ms{suffix}"] / ms
+    log(f"K6{suffix}: {ms:.4f} ms (device {entry['device_ms' + suffix]:.4f}), "
+        f"plain {entry['plain_ms' + suffix]:.4f}, "
+        f"bound {b_ms:.5f} ({b_by}), tensor-core bound "
+        f"{entry['bound_tc_ms' + suffix]:.5f}, {slices} slices of {rows} "
+        f"rows, band share {entry['band_share' + suffix]:.5f} of the "
+        f"elements, {step_share:.5f} of the warp steps, {per_warp:.2f} "
+        f"deferred a warp and slice")
     def lib():
         err2 = torch.addmm(pq[:, None], ft.T, w) + tn[None, :]
         inl = err2 < thr2
@@ -594,7 +779,8 @@ def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7):
     # --- c. K5, K6, K7 at this route's shapes -----------------------------
     tdp, tf = reg.prepare_features(td, cfg, "fused")
     nn_phase(torch, nn, sub_f.descriptors, sm, tf.descriptors, tf.mask, "",
-             k5)
+             k5, quality=(np, sub_c.points, tdp.points, R_true, t_true,
+                          voxel))
     corr = ransac.feature_correspondences(sub_f, tf).long()
     p, qq = sub_c.points, tdp.points[corr]
     count = int(sm.sum())
@@ -685,6 +871,14 @@ def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7):
         "device_busy_ms": device_busy_ms(torch, pair),
     }
     return [e for e, _ in sweeps], route
+
+
+def per_call_device_ms(torch, fn, calls=5):
+    """Device kernel time of one call of ``fn``, averaged over ``calls``
+    calls (torch.profiler): what the card spends, without the host's
+    launch gaps that CUDA events around one call include."""
+    fn()
+    return device_busy_ms(torch, lambda: [fn() for _ in range(calls)]) / calls
 
 
 def device_busy_ms(torch, fn):
@@ -1191,6 +1385,7 @@ def scene_pair(torch, np, dev, n, entries, counters):
     tgt_p, tgt_f = stage("prepare_target_ms", lambda: (
         fused_features.fused_prepare_features(tgt, radius)))
     index = stage("icp_index_ms", lambda: icp.build_icp_target(tgt_p))
+    tgt_f = stage("nn_operand_ms", lambda: ransac.with_target_operand(tgt_f))
     refined, coarse = stage("first_pair_ms",
                             lambda: pair(tgt_p, tgt_f, index))
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
@@ -1219,8 +1414,6 @@ def scene_pair(torch, np, dev, n, entries, counters):
 
     # K2-K5 and K7 against their plain versions at this path's shapes (K6
     # sees the same shapes as at 100,352 points: the 8,192-row subset).
-    # K5's library call would build a (8,192 x 1,048,576) fp32 matrix, 34
-    # GB: not timed here.
     al, lo, ln = fused_features.aligned_layout(tgt, radius, 128)
     prepare_sweeps(torch, features, fused_features, al, lo, (ln, ln, ln),
                    128, r2, (e2, e3, e4), "_1m")
@@ -1230,7 +1423,8 @@ def scene_pair(torch, np, dev, n, entries, counters):
                    (e2, e3, e4), "_sparse256_1m")
     sub_c, sub_f, _ = s_p
     nn_phase(torch, nn, sub_f.descriptors, sub_f.mask, tgt_f.descriptors,
-             tgt_f.mask, "_1m", k5, library=False)
+             tgt_f.mask, "_1m", k5, library=False,
+             quality=(np, sub_c.points, tgt_p.points, R_true, t_true, voxel))
     T_true = torch.eye(4, device=dev)
     T_true[:3, :3] = torch.from_numpy(R_true).to(dev)
     T_true[:3, 3] = torch.from_numpy(t_true).to(dev)
@@ -1241,6 +1435,16 @@ def scene_pair(torch, np, dev, n, entries, counters):
               "_1m", k7)
     for e, name in zip(entries, counters):
         e["launches_1m_pair"] = launches[name]
+    # K5's library call at these shapes, a (8,192 x 1,048,576) fp32 product
+    # of 34.4 GB, once the pair's state is freed.
+    q1, t1, m1 = sub_f.descriptors, tgt_f.descriptors, tgt_f.mask
+    del s_p, sub_c, sub_f, tgt_p, tgt_f, index, al, lo, ln, co
+    lib_ms, note, halves = nn_library_ms(torch, q1, t1, m1)
+    k5["library_ms_1m"] = lib_ms
+    k5["library_note_1m"] = note
+    if halves is not None:
+        k5["library_halves_ms_1m"] = halves
+    log(f"K5_1m library call ({note}): {lib_ms:.4f} ms")
     return {
         "route": "1M pair", "main_path": "fused_prepare_features, "
         "build_icp_target, then fused_prepare_sparse, ransac_registration, "
@@ -1405,11 +1609,14 @@ def run(args):
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(sys.stderr):  # the compiler's report
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):  # the compiler's report
         build.build(verbose=True)
     build.library()
     build_s = time.perf_counter() - t0
+    log(report.getvalue())
     log(f"kernels built in {build_s:.1f} s")
+    resources = kernel_resources(report.getvalue())
 
     k5, k6, k7, ref_route = reference_route(torch, np, dev)
     k5.update({"name": "nn_top1 (K5)", "route": "cuda",
@@ -1451,6 +1658,17 @@ def run(args):
         torch, np, dev, args, sweeps + [k5, k6, k7],
         {k: f for k, f in counters.items() if k != "K9"})
     k8["card"] = smi
+    for e in kernels + [k8] + probe_entries:
+        # The tensor-core bound and the split count exist for K5's
+        # descriptor route and K6 only.
+        e.setdefault("bound_tc_ms", None)
+        e.setdefault("splits", None)
+        funcs = KERNEL_FUNCTIONS.get(e["name"].split(" (")[0].replace(
+            "probe ", ""), [])
+        e["registers"] = {f: resources[f]["registers"] for f in funcs
+                          if f in resources}
+        e["spill_bytes"] = {f: resources[f]["spill_bytes"] for f in funcs
+                            if f in resources}
 
     print(json.dumps({"kernels": kernels + [k8] + probe_entries}),
           flush=True)

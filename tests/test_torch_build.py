@@ -51,7 +51,7 @@ def test_concurrent_first_calls_build_once(monkeypatch):
 def test_signatures_name_every_entry_point():
     """The library binds K8's and the probe's C entry points beside the
     earlier kernels'."""
-    for name in ("tpu3d_nn_top1", "tpu3d_ransac_score",
+    for name in ("tpu3d_nn_top1", "tpu3d_nn_desc_top1", "tpu3d_ransac_score",
                  "tpu3d_icp_p2plane_stats", "tpu3d_moments_sweep",
                  "tpu3d_spfh_sweep", "tpu3d_fpfh_sweep",
                  "tpu3d_bilateral_filter", "tpu3d_nn_walk_top1",
@@ -62,5 +62,13 @@ def test_signatures_name_every_entry_point():
     # q4, packed, lo, len, then qp, m, nb, k, block, sub, r2, d2, idx, stream
     assert build.SIGNATURES["tpu3d_nn_walk_top1"] == [
         build._P] * 4 + [build._I] * 6 + [build._F] + [build._P] * 3
+    # The tensor-core routes: qop, top, queries, then q, d, qp, m_tiles,
+    # tiles_per_split, splits, then partials, idx, d2, stream; and feat,
+    # pq, w, tn, then n, h, rows, slices, thr2, band, then partials,
+    # outputs, stream.
+    assert build.SIGNATURES["tpu3d_nn_desc_top1"] == (
+        [build._P] * 3 + [build._I] * 6 + [build._P] * 5)
+    assert build.SIGNATURES["tpu3d_ransac_score"] == (
+        [build._P] * 4 + [build._I] * 4 + [build._F] * 2 + [build._P] * 5)
     sources = {p.name for p in build._sources()}
     assert {"nn_walk.cu", "probe.cu"} <= sources

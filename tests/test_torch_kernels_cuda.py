@@ -106,6 +106,163 @@ def test_score_kernel_matches_plain(dev):
     )
 
 
+def _histograms(g, n, d=33):
+    """Descriptor-like rows: non-negative, L1-normalised, as FPFH."""
+    x = torch.rand(n, d, generator=g) ** 4
+    return x / x.sum(1, keepdim=True)
+
+
+def _hold_nn(q, t, mask, dev):
+    """The kernel against its plain version: d² within 1e-5 relative (the
+    plain version's own fp32 rounding of ‖t‖² − 2t·q, and 3xTF32's
+    ~2^-21), and every differing pick a float64 near-tie (≤ 1e-6)."""
+    pi, pd = nn.nearest_neighbor(q, t, mask)
+    ki, kd = nn.nearest_neighbor(q.to(dev), t.to(dev), mask.to(dev))
+    torch.cuda.synchronize()
+    ki, kd = ki.cpu(), kd.cpu()
+    assert ki.dtype == torch.int32 and kd.shape == pd.shape
+    assert float(((kd - pd).abs() / pd.abs().clamp_min(1.0)).max()) <= 1e-5
+    rows = (ki != pi).nonzero()[:, 0]
+    tm = torch.where(mask[:, None], t, 1.0e6).double()
+    q64 = q[rows].double()
+    gap = ((tm[ki[rows].long()] - q64).pow(2).sum(1)
+           - (tm[pi[rows].long()] - q64).pow(2).sum(1)).abs()
+    assert rows.numel() == 0 or float(gap.max()) <= 1e-6
+    return ki, kd
+
+
+@pytest.mark.parametrize("q,m", [(1, 1), (1, 50), (257, 129), (300, 4097),
+                                 (1000, 40000)])
+def test_nn_descriptor_kernel_ragged(dev, q, m):
+    """K5's tensor-core route at ragged Q and M: one query, fewer targets
+    than one tile, Q past a 256-query tile, M past a 128-row tile, and a
+    grid split over targets."""
+    g = torch.Generator().manual_seed(q + m)
+    qs, ts = _histograms(g, q), _histograms(g, m)
+    mask = torch.rand(m, generator=g) > 0.1
+    mask[0] = True
+    if m >= 40000:
+        assert nn.split_plan(q, m)[1] > 1
+    _hold_nn(qs, ts, mask, dev)
+
+
+def test_nn_descriptor_kernel_seam_ties(dev):
+    """Exact duplicates of a query's match on both sides of a tile seam,
+    of a split seam, within one thread's columns and across lanes: the
+    lowest row wins every time."""
+    m = 20000
+    per, splits = nn.split_plan(4, m)
+    assert splits > 1
+    seam = per * nn.T_TILE  # the first row of split 1
+    g = torch.Generator().manual_seed(5)
+    ts = _histograms(g, m)
+    mask = torch.ones(m, dtype=torch.bool)
+    groups = [[128, 127], [seam, seam - 1], [130, 129, 3000],
+              [seam + 700, 5, seam + 1]]
+    qs = _histograms(g, len(groups))
+    for i, rows in enumerate(groups):
+        ts[rows] = qs[i]
+    ki, kd = _hold_nn(qs, ts, mask, dev)
+    assert ki.tolist() == [min(r) for r in groups]
+    assert float(kd.max()) <= 1e-6
+
+
+def test_nn_descriptor_kernel_packed_targets(dev):
+    """A target operand built once (descriptor_targets) gives the same
+    picks and d² as the call that packs the targets itself; one of other
+    targets' shape is refused."""
+    g = torch.Generator().manual_seed(11)
+    qs, ts = _histograms(g, 500).to(dev), _histograms(g, 3000).to(dev)
+    mask = (torch.rand(3000, generator=g) > 0.1).to(dev)
+    top = nn.descriptor_targets(ts, mask)
+    ki, kd = nn.nearest_neighbor(qs, ts, mask)
+    pi, pd = nn.nearest_neighbor(qs, ts, mask, packed_targets=top)
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+    with pytest.raises(ValueError):
+        nn.nearest_neighbor(qs, ts[:2000], mask[:2000], packed_targets=top)
+
+
+def test_nn_descriptor_kernel_all_invalid(dev):
+    """Every target masked: all sit at the sentinel, and row 0 wins."""
+    g = torch.Generator().manual_seed(9)
+    qs, ts = _histograms(g, 300), _histograms(g, 1000)
+    mask = torch.zeros(1000, dtype=torch.bool)
+    ki, _ = _hold_nn(qs, ts, mask, dev)
+    assert int(ki.abs().max()) == 0
+
+
+def _scoring_inputs(n, h, seed=0, invalid=0.1):
+    g = torch.Generator().manual_seed(seed)
+    p = torch.rand(n, 3, generator=g) - 0.5
+    q = p + 3e-4 * torch.randn(n, 3, generator=g)
+    out = torch.rand(n, generator=g) < 0.4
+    q[out] += 0.05 + 0.15 * torch.rand(int(out.sum()), 3, generator=g)
+    mask = torch.rand(n, generator=g) >= invalid
+    feat, pq = ransac.build_scoring_factors(p, q, mask)
+    # Hypotheses from the valid rows (from every row when none is valid).
+    valid = mask if int(mask.sum()) >= 3 else torch.ones_like(mask)
+    count = int(valid.sum())
+    table = ransac.build_rotation_table(torch.cat([p, q], 1), valid, count)
+    draw = ransac.torch_draws(seed)
+    w16t, tn, _, _, _ = ransac.solve_rotation_chunk(
+        lambda e: draw(0, e), h, 0, table, count, 10**9)
+    return feat, pq, w16t, tn, float(np.float32(0.0075) ** 2)
+
+
+def _hold_score(args, dev):
+    """The kernel against its plain version: counts equal on every
+    hypothesis (the kernel recomputes in fp32, as the plain version, every
+    element inside the band around thr²), sums within the expansion's
+    cancellation noise."""
+    pc, pe = ransac_score.score_hypotheses(*args)
+    before = ransac_score.score_hypotheses.launches
+    kc, ke = ransac_score.score_hypotheses(
+        *(x.to(dev) for x in args[:4]), args[4])
+    torch.cuda.synchronize()
+    assert ransac_score.score_hypotheses.launches == before + 1
+    kc, ke = kc.cpu(), ke.cpu()
+    assert torch.equal(kc, pc)
+    assert torch.all((ke - pe).abs() <= 1e-3 * pe + 1e-5 * pc)
+    return kc, pc
+
+
+@pytest.mark.parametrize("n,h", [(8192, 32), (2048, 25600), (1000, 1),
+                                 (77, 130), (5000, 700)])
+def test_score_kernel_shapes(dev, n, h):
+    """K6's tensor-core route at the finalists' shape (H 32 x N 8,192,
+    sliced over rows), the estimate shape, one hypothesis, ragged N and H
+    (N not a multiple of the row slice, H past one 128-hypothesis tile)."""
+    rows, slices = ransac_score.slice_plan(n, h)
+    kc, _ = _hold_score(_scoring_inputs(n, h, seed=n + h), dev)
+    if (n, h) == (8192, 32):
+        assert slices * -(-h // ransac_score.HYP_TILE) >= 132
+        assert float(kc.max()) > 1000
+
+
+def test_score_kernel_band_heavy(dev):
+    """Most elements inside the band around thr² (each row's pq set so
+    that err² sits within a few 1e-6 of thr²): every warp's list of
+    deferred elements fills and is recomputed many times per slice, and
+    the counts still equal the plain version's."""
+    feat, pq, w16t, tn, thr2 = _scoring_inputs(4096, 300, seed=3)
+    w16t = 1e-6 * w16t / w16t.abs().amax(0, keepdim=True)
+    tn = torch.zeros_like(tn)
+    pq = torch.where(pq < 1e30, torch.full_like(pq, thr2), pq)
+    e = feat.T @ w16t + pq[:, None]
+    band = ransac_score.band_margin(pq, tn)
+    assert float(((e - thr2).abs() <= band).float().mean()) > 0.5
+    kc, _ = _hold_score((feat, pq, w16t, tn, thr2), dev)
+    assert 0 < float(kc.min()) and float(kc.max()) < 4096
+
+
+def test_score_kernel_all_rows_invalid(dev):
+    """Every row invalid (pq = 1e30): no hypothesis counts anything."""
+    feat, pq, w16t, tn, thr2 = _scoring_inputs(600, 300, invalid=1.0)
+    assert float(pq.min()) >= 1e30
+    kc, _ = _hold_score((feat, pq, w16t, tn, thr2), dev)
+    assert float(kc.abs().max()) == 0.0
+
+
 def test_icp_stats_kernel_matches_plain(dev):
     g = torch.Generator().manual_seed(1)
     m, n, block = 3000, 2048, 64

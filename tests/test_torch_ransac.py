@@ -20,7 +20,7 @@ from tpu3d.ops.ransac_pallas import score_hypotheses_pallas
 from tpu3d.ops.transforms import kabsch_quat
 from tpu3d.registration import downsample_bucketed, prepare_features
 from tpu3d.types import PointCloud as JaxCloud
-from tpu3d_torch.ops import ransac, ransac_score
+from tpu3d_torch.ops import nn, ransac, ransac_score
 from tpu3d_torch.types import FPFHFeatures, PointCloud
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -126,6 +126,27 @@ def _to_torch(sd, td, sf, tf):
         return FPFHFeatures(descriptors=_t(f.descriptors), mask=_t(f.mask))
 
     return cloud(sd), cloud(td), feat(sf), feat(tf)
+
+
+def test_with_target_operand_builds_it_once(prepared_4096, monkeypatch):
+    """K5's target operand is attached once per target model: not on the
+    CPU (the plain version takes no operand); where the kernel would
+    launch, it is descriptor_targets of the target's descriptors, a second
+    call keeps it, and the correspondences through it are the JAX
+    package's."""
+    sd, td, sf, tf = prepared_4096
+    from tpu3d.ops.ransac import feature_correspondences as jax_corr
+
+    _, _, tsf, ttf = _to_torch(sd, td, sf, tf)
+    assert ransac.with_target_operand(ttf) is ttf and ttf.nn_operand is None
+    monkeypatch.setattr(ransac, "launches_kernel", lambda *ts: True)
+    att = ransac.with_target_operand(ttf)
+    assert torch.equal(att.nn_operand,
+                       nn.descriptor_targets(ttf.descriptors, ttf.mask))
+    assert ransac.with_target_operand(att) is att
+    np.testing.assert_array_equal(
+        ransac.feature_correspondences(tsf, att).numpy(),
+        np.asarray(jax_corr(sf, tf)))
 
 
 def test_ransac_registration_replays_jax(prepared_4096):
@@ -275,3 +296,95 @@ def test_gather_solve_matches_jax(rng):
                                atol=2e-5)
     np.testing.assert_allclose(tn.numpy()[~dup], np.asarray(tn_ref)[~dup],
                                atol=2e-6)
+
+
+# --- The tensor-core kernels' arithmetic on the bench pair's FPFH
+# descriptors and scoring factors, emulated (tests/tf32_emulation.py).
+
+
+def test_k5_3xtf32_selection_on_fpfh(prepared_4096):
+    """K5's descriptor route (packed operands, 3xTF32, splits) on the JAX
+    package's FPFH descriptors against its nearest_neighbor on the CPU.
+    d² within 1e-5 relative to max(d², 1): both round e = ‖t‖² − 2t·q,
+    3xTF32 at ~2^-21 of Σ|t_k q_k| ≤ 1 (the histograms are L1-normalised).
+    Differing picks must be float64 near-ties (≤ 1e-6): the two roundings
+    may order near-equal candidates differently, nothing else."""
+    from tf32_emulation import nn_3xtf32
+    from tpu3d.ops.nn_pallas import nearest_neighbor as jax_nn
+
+    _, _, sf, tf = prepared_4096
+    q = np.asarray(sf.descriptors, np.float32)
+    t = np.asarray(tf.descriptors, np.float32)
+    mask = np.asarray(tf.mask)
+    ji, jd = (np.asarray(a) for a in jax_nn(sf.descriptors, tf.descriptors,
+                                            tf.mask))
+    ei, ed = nn_3xtf32(_t(q), _t(t), _t(mask))
+    ei, ed = ei.numpy(), ed.numpy()
+    assert np.max(np.abs(ed - jd) / np.maximum(np.abs(jd), 1.0)) <= 1e-5
+    rows = np.nonzero((ei != ji) & np.asarray(sf.mask))[0]
+    tm = np.where(mask[:, None], t, 1e6).astype(np.float64)
+    q64 = q.astype(np.float64)
+    gap = np.abs(((tm[ei[rows]] - q64[rows]) ** 2).sum(1)
+                 - ((tm[ji[rows]] - q64[rows]) ** 2).sum(1))
+    assert rows.size == 0 or gap.max() <= 1e-6
+    assert (ei == ji).mean() > 0.99
+
+
+@pytest.fixture(scope="module")
+def scoring_4096(prepared_4096):
+    """The bench pair's scoring factors (JAX correspondences) and one
+    rotation-sampler chunk of 4,096 hypotheses, as torch tensors."""
+    from tpu3d.ops.ransac import feature_correspondences as jax_corr
+
+    sd, td, sf, tf = prepared_4096
+    corr = np.asarray(jax_corr(sf, tf))
+    p = _t(np.asarray(sd.points))
+    q = _t(np.asarray(td.points)[corr])
+    mask = _t(np.asarray(sd.mask))
+    feat, pq = ransac.build_scoring_factors(p, q, mask)
+    count = int(mask.sum())
+    table = ransac.build_rotation_table(torch.cat([p, q], 1), mask, count)
+    draw = ransac.torch_draws(42)
+    w16t, tn, _, _, _ = ransac.solve_rotation_chunk(
+        lambda e: draw(0, e), 4096, 0, table, count, 10**9)
+    feat_e, pq_e = ransac.build_scoring_factors(
+        *(ransac.strided_rows(x, 1024) for x in (p, q, mask)))
+    thr2 = float((np.float32(VOXEL) * np.float32(1.5)) ** 2)
+    return {"rows": (feat, pq), "estimate": (feat_e, pq_e)}, w16t, tn, thr2
+
+
+@pytest.mark.parametrize("rows,h", [("rows", 32), ("rows", 4096),
+                                    ("estimate", 4096)])
+def test_k6_band_recheck_gives_the_plain_inlier_sets(scoring_4096, rows, h):
+    """K6's 3xTF32 scorer with the fp32 re-check inside the band around
+    thr²: counts equal the plain version's on every hypothesis, and error
+    sums agree within the expansion's cancellation noise. The band
+    (BAND·(pq + 2)(‖t‖² + 3)) is at least four times the largest
+    3xTF32-against-fp32 difference on these factors."""
+    from tf32_emulation import score_3xtf32
+
+    sets, w16t, tn, thr2 = scoring_4096
+    feat, pq = sets[rows]
+    w, t = w16t[:, :h].contiguous(), tn[:h].contiguous()
+    pc, pe = ransac_score.score_hypotheses_plain(feat, pq, w, t, thr2)
+    kc, ke, e_tc, e_32 = score_3xtf32(feat, pq, w, t, thr2)
+    assert float(pc.max()) > 50
+    np.testing.assert_array_equal(kc.numpy(), pc.numpy())
+    assert torch.all((ke - pe).abs() <= 1e-4 * pe + 1e-5 * pc)
+    valid = pq < 1e29
+    scale = (pq[:, None] + 2.0) * (t[None, :] + 3.0)
+    ratio = ((e_tc - e_32).abs() / scale)[valid]
+    assert float(ratio.max()) <= ransac_score.BAND / 4
+    near = ((e_tc - thr2).abs() <= ransac_score.band_margin(pq, t))[valid]
+    assert float(near.float().mean()) < 0.02  # the re-check stays rare
+
+
+@pytest.mark.parametrize("n,h", [(8192, 32), (2048, 25600), (77, 130),
+                                 (1000, 1), (0, 5), (5190, 100000)])
+def test_k6_slice_plan(n, h):
+    rows, slices = ransac_score.slice_plan(n, h)
+    assert rows % 32 == 0 and 32 <= rows <= 256
+    assert slices == -(-n // rows)
+    blocks = slices * -(-h // ransac_score.HYP_TILE)
+    if (n, h) in ((8192, 32), (2048, 25600)):
+        assert blocks >= 132  # both main-path shapes fill the card

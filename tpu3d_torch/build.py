@@ -40,7 +40,10 @@ _D = ctypes.c_double
 # and the stream last).
 SIGNATURES = {
     "tpu3d_nn_top1": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "tpu3d_ransac_score": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
+    "tpu3d_nn_desc_top1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                           _P, _P],
+    "tpu3d_ransac_score": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P,
+                           _P, _P, _P],
     "tpu3d_icp_p2plane_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     "tpu3d_moments_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     "tpu3d_spfh_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],

@@ -25,7 +25,8 @@ from typing import Protocol
 import numpy as np
 import torch
 
-from tpu3d_torch.ops.nn import nearest_neighbor
+from tpu3d_torch.device import launches_kernel
+from tpu3d_torch.ops.nn import descriptor_targets, nearest_neighbor
 from tpu3d_torch.ops.ransac_score import score_hypotheses
 from tpu3d_torch.ops.transforms import (
     kabsch3_planes,
@@ -209,6 +210,16 @@ def solve_rotation_chunk(draw, h, first_id, pq2p, count, max_iterations):
     return w16t, t_norm, disabled, ids, n_consumed
 
 
+def with_target_operand(target_features: FPFHFeatures) -> FPFHFeatures:
+    """``target_features`` with K5's packed target operand attached when
+    they lie on the card, so that every :func:`feature_correspondences`
+    against them packs only its queries. Call it once per target model."""
+    d, m = target_features.descriptors, target_features.mask
+    if target_features.nn_operand is not None or not launches_kernel(d, m):
+        return target_features
+    return target_features._replace(nn_operand=descriptor_targets(d, m))
+
+
 def feature_correspondences(
     source_features: FPFHFeatures, target_features: FPFHFeatures
 ) -> torch.Tensor:
@@ -218,6 +229,7 @@ def feature_correspondences(
         source_features.descriptors,
         target_features.descriptors,
         target_features.mask,
+        packed_targets=target_features.nn_operand,
     )
     return idx
 

@@ -20,7 +20,11 @@ import numpy as np
 import torch
 
 from tpu3d_torch.ops.icp import icp_refine
-from tpu3d_torch.ops.ransac import Draws, ransac_registration
+from tpu3d_torch.ops.ransac import (
+    Draws,
+    ransac_registration,
+    with_target_operand,
+)
 from tpu3d_torch.types import FPFHFeatures, PointCloud, RegistrationResult
 
 
@@ -76,6 +80,7 @@ def register_batch(
     ``draws`` replaces the RANSAC draw stream of every instance."""
     # fp32 product, as the JAX batch computes its threshold.
     icp_thr = float(np.float32(voxel_size) * np.float32(icp_distance_factor))
+    target_features = with_target_operand(target_features)  # once a batch
     refined, coarse = [], []
     for b in range(sources.points.shape[0]):
         src = _member(sources, b)

@@ -39,7 +39,7 @@ from tpu3d_torch.ops.deproject import deproject
 from tpu3d_torch.ops.depth import bilateral_filter, depth_preprocess
 from tpu3d_torch.ops.fused_features import fused_prepare_sparse
 from tpu3d_torch.ops.icp import icp_refine
-from tpu3d_torch.ops.ransac import ransac_registration
+from tpu3d_torch.ops.ransac import ransac_registration, with_target_operand
 from tpu3d_torch.ops.transforms import invert_transform
 from tpu3d_torch.pipeline.dedup import filter_duplicates
 from tpu3d_torch.registration import (
@@ -469,6 +469,8 @@ class Pipeline:
         ref_cloud, ref_features = prepare_features(
             ref_down, cfg.registration, self._neighbor_mode
         )
+        # K5's target operand, once per reference model.
+        ref_features = with_target_operand(ref_features)
 
         if cfg.visualization != "none":
             self.viewer = SceneViewer()

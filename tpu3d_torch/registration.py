@@ -33,7 +33,11 @@ from tpu3d_torch.ops.fused_features import (
 from tpu3d_torch.ops.icp import icp_refine
 from tpu3d_torch.ops.neighbors import knn
 from tpu3d_torch.ops.normals import estimate_normals
-from tpu3d_torch.ops.ransac import Draws, ransac_registration
+from tpu3d_torch.ops.ransac import (
+    Draws,
+    ransac_registration,
+    with_target_operand,
+)
 from tpu3d_torch.ops.voxel import compact, voxel_downsample
 from tpu3d_torch.types import FPFHFeatures, PointCloud, RegistrationResult
 
@@ -205,6 +209,7 @@ def sparse_register_escalated(
     fitness wins. Returns (refined, coarse, escalated); ``draws`` feeds
     both RANSAC runs."""
     ts = two_stage_opt(two_stage)
+    tgt_feat = with_target_operand(tgt_feat)  # for both RANSAC runs
     sub_c, sub_f, _ = fused_prepare_sparse(src_down, radius,
                                            corr_cap=corr_cap)
     coarse = ransac_registration(

@@ -81,6 +81,10 @@ class FPFHFeatures(NamedTuple):
 
     descriptors: torch.Tensor  # f32[N, 33]
     mask: torch.Tensor  # bool[N]
+    # K5's packed target operand (ops.nn.descriptor_targets) when these
+    # are a registration target on the card: built once, used by every
+    # RANSAC against them (ops.ransac.with_target_operand); else None.
+    nn_operand: torch.Tensor | None = None
 
     @property
     def capacity(self) -> int:
