@@ -13,11 +13,14 @@ Phases, each fatal on failure:
   3. the reference-parity route at bucket 8,192 (the bench fixture
      ``make_pair(8192, voxel=0.005)``): K5 top-1 NN at D=33 and D=3, K6
      hypothesis scoring (25,600 hypotheses x 2,048 estimate rows, and 32
-     finalists x 8,192 rows) and K7 ICP statistics against their plain
-     PyTorch versions on the same card inputs; then
-     ``tpu3d_torch.register_pair`` with the K5/K6/K7 launch counts, bench.py's
-     quality gate (rotation error < 0.02, translation error < 0.005 m), warm
-     pairs and a stage breakdown;
+     finalists x 8,192 rows) and K7 ICP statistics (its sums and its
+     match-only epilogue) against their plain PyTorch versions on the same
+     card inputs; then ``tpu3d_torch.register_pair`` with the K5/K6/K7
+     launch counts, bench.py's quality gate (rotation error < 0.02,
+     translation error < 0.005 m), warm pairs and a stage breakdown; and
+     ``register_pair`` with ``use_point_to_plane=False`` (point-to-point
+     ICP through K7's match-only epilogue, never its sums), through the
+     gate;
   4. the at-scale route (``make_pair(100352)``, voxel 0.002, every other
      field of RegistrationConfig at its default: bucket 131,072, the sparse
      arm, 100,000 hypotheses, ICP <= 200 iterations):
@@ -36,7 +39,9 @@ Phases, each fatal on failure:
      d. ``tpu3d_torch.register_pair``: all six launch counts > 0 in that
         run, the quality gate, the escalation flag, warm pairs, a stage
         breakdown, peak device memory and one pair's device-busy time
-        (torch.profiler);
+        (torch.profiler); then with ``two_stage='on'`` (the two-stage
+        scorer ran) and with ``use_point_to_plane=False``, each through
+        the gate;
   5. the pipeline (``tpu3d_torch.pipeline.Pipeline``) on 1280 x 720 frames:
      a. K9 (the bilateral filter) against its plain version on the bin
         frame (``models/fixtures.bin_frame``) masked to one instance, at
@@ -54,10 +59,17 @@ Phases, each fatal on failure:
         the gather sampler), and the reference model, the deprojected
         frame written with ``save_ply`` (fused mode). Every instance gets
         a pose, no error branch or host ICP retry runs, all four pass the
-        quality gate against the identity, and K2-K7 and K9 all launch;
+        quality gate against the identity, K2-K7 and K9 all launch, and
+        the two warm runs give the cold run's poses bit for bit;
         reported: the stage breakdown (wrappers around the pipeline's own
         functions), cold and warm run times, peak device memory and one
-        run's device-busy time;
+        run's device-busy time; K2-K4 against their plain versions on the
+        reference's dense and the first instance's sparse prepare, and
+        K7 on that instance's ICP; then one more run with ``two_stage: on``
+        and ``use_point_to_plane: false``: every instance posed, no error
+        branch, every kernel launched (K7 by its match-only epilogue),
+        all four through the quality gate, and a second run with the
+        same poses bit for bit;
   6. the 1M-point scene of bench.py's extras, at its sizes:
      a. top-1 NN within 2 mm, 1,048,576 x 1,048,576 (``make_pair(1 << 20,
         seed=5)``): ``ops.slab.slab_top1`` on the x-sorted points (block
@@ -81,23 +93,35 @@ Phases, each fatal on failure:
      c. the 64-instance batch (16,384-row target, 64 fused-prepared
         sources of 8,192 rows at bench.py's rng(1) poses,
         ``register_batch`` with 4,096 hypotheses and ICP <= 30
-        iterations): every member through the gate, K2-K7 launched;
+        iterations): every member through the gate, K2-K7 launched; then
+        K2-K4 on the target's and the first source's prepares and K7 on
+        that source's ICP, against their plain versions;
      d. the probe (``tpu3d_torch.probe``): each function's kernel against
         PyTorch on the card within its stated tolerance.
   Kernel and plain times are CUDA events, 2 warm runs, median of 5
-  (slab_top1 and K8's plain version: 1 warm run, median of 3).
+  (slab_top1 and K8's plain version: 1 warm run, median of 3); beside
+  them ``device_ms``, the device time of one call (10 calls queued behind
+  a device-side sleep, between two CUDA events), for K2-K9. K2-K4, K8
+  and K9 are held bit for bit, K7's n_corr and matches too. K7 also
+  reports one ICP iteration with its readback (``iteration_ms``); K4, on
+  each dense layout, both of its kernels' device ms
+  (``device_ms_threads``, ``device_ms_lanes``) and the one its launch
+  plan picks (``plan``).
   ``bound_ms`` is the larger of this run's operations over 67 TFLOP/s
   (fp32 without tensor cores) and its bytes (each input read once, each
-  output written once) over 3.35 TB/s, an H100 SXM's peaks; K9 also
+  output written once) over 3.35 TB/s, an H100 SXM's peaks; the window
+  kernels (K2-K4, K7, K8) count only the target columns that some
+  window covers, K7 also the kept matches' normals and two binary
+  searches of sorted_x per block with a valid query; K9 also
   reports the floor its expf calls set on the special-function units.
   K5 at D > 4 and K6 run 3xTF32 on the tensor cores: ``bound_tc_ms`` is
   three TF32 passes of their operations over 495 TFLOP/s, beside their
   split count (``splits``); K5's ``kernel_ms`` times its two launches
   on packed operands (``ms`` includes the operand pass, and
   ``ms_packed_targets`` is one call on a target operand built once, as
-  RANSAC makes it), and ``device_ms`` is the device time of one call
-  (torch.profiler), without the host's launch gaps that the CUDA events
-  around one call include. K6 also reports the share of its elements
+  RANSAC makes it), and ``device_ms`` is the device time of one call,
+  without the host's launch gaps that the CUDA events around one call
+  include. K6 also reports the share of its elements
   inside the band that it recomputes in fp32, the share of warp steps
   (8 rows x 32 hypotheses) that hold one, and the elements a warp defers
   per row slice.
@@ -135,10 +159,11 @@ PEAK_HBM = 3.35e12  # bytes/s
 # The kernel functions behind each kernels-line entry (its name before " (").
 KERNEL_FUNCTIONS = {
     "moments_sweep": ["moments_kernel"], "spfh_sweep": ["spfh_kernel"],
-    "fpfh_sweep": ["fpfh_kernel"],
+    "fpfh_sweep": ["fpfh_kernel", "fpfh_lanes_kernel"],
     "nn_top1": ["nn_desc_kernel", "nn_desc_reduce", "nn_top1_kernel"],
     "ransac_score": ["score_tc_kernel", "score_reduce"],
     "icp_p2plane_stats": ["icp_stats_kernel"],
+    "icp_matches": ["icp_stats_kernel"],
     "bilateral_filter": ["bilateral_kernel"],
     "nn_walk_top1": ["nn_walk_top1_kernel"],
     "atan2": ["unary_kernel"], "atan": ["unary_kernel"],
@@ -146,6 +171,16 @@ KERNEL_FUNCTIONS = {
     "argmin": ["argmin_kernel"], "cumsum": ["cumsum_kernel"],
     "dot_axis0": ["dot_axis0_kernel"], "transpose": ["transpose_kernel"],
 }
+
+
+def card_state():
+    """The card's SM clock, power draw and temperature now (nvidia-smi),
+    to tell a slower phase from a slower card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def log(*a):
@@ -460,40 +495,96 @@ def score_phase(torch, ransac_score, args, suffix, entry):
 
 
 def icp_phase(torch, icp, icp_stats, index, src_pts, smask, T, thr, suffix,
-              entry):
-    """K7 kernel against its plain version on the slab windows at T."""
+              entry, match_entry=None):
+    """K7 against its plain version on the slab windows at T: the sums
+    (n_corr exact, the rest within the stated tolerances) and the
+    match-only epilogue (P, d² and rows equal); wrapper time, device time
+    per call, plain time and bound for both."""
     x0 = (src_pts @ T[:3, :3].T + T[:3, 3])[:, 0]
     _, order = torch.sort(torch.where(smask, x0, 3e4), stable=True)
-    args = icp.SlabStats(index, src_pts[order], smask[order],
-                         thr).kernel_args(T)
+    stats = icp.SlabStats(index, src_pts[order], smask[order], thr)
+    args = stats.kernel_args(T.cpu())
+    src, qmask, packed, sorted_x, Th, radius, thr2, block = args
+    margs = args[:6] + (block,)
     real = icp_stats.icp_p2plane_stats
-    kp = real(*args)
-    pp = icp_stats.icp_p2plane_stats_plain(*args)
+    plain = icp_stats.icp_p2plane_stats_plain
+    ks = real(*args)
+    ps = plain(*args)
+    km = icp_stats.icp_matches(*margs)
+    pm = icp_stats.icp_matches_plain(*margs)
     torch.cuda.synchronize()
-    ks = icp_stats.unpack_partials(kp)
-    ps = icp_stats.unpack_partials(pp)
-    err = float((kp - pp).abs().max())
-    pts, qmask, packed, lo, length, _, block = args
-    log(f"K7{suffix}: {pts.shape[0]} queries, n_corr {float(ks[2])} vs "
-        f"{float(ps[2])}, max partial err {err:.3e}, window rows max "
+    err = float((ks - ps).abs().max())
+    lo, length = icp_stats.query_windows(sorted_x, pm[0], qmask > 0.5,
+                                        radius, block)
+    log(f"K7{suffix}: {src.shape[0]} queries, n_corr {float(ks[42])} vs "
+        f"{float(ps[42])}, max err {err:.3e}, window rows max "
         f"{int(length.max())} mean {float(length.float().mean()):.1f}")
-    check(float(ks[2]) == float(ps[2]) > 0, "K7 n_corr")
-    check(torch.allclose(ks[0], ps[0], rtol=1e-4, atol=1e-5), "K7 JtJ")
-    check(torch.allclose(ks[1], ps[1], rtol=1e-4, atol=1e-6), "K7 Jtr")
-    check(torch.allclose(ks[3], ps[3], rtol=1e-5, atol=0), "K7 sum d2")
+    check(float(ks[42]) == float(ps[42]) > 0, f"K7{suffix} n_corr")
+    check(torch.allclose(ks[:36], ps[:36], rtol=1e-4, atol=1e-5),
+          f"K7{suffix} JtJ")
+    check(torch.allclose(ks[36:42], ps[36:42], rtol=1e-4, atol=1e-6),
+          f"K7{suffix} Jtr")
+    check(torch.allclose(ks[43], ps[43], rtol=1e-5, atol=0),
+          f"K7{suffix} sum d2")
+    same = [torch.equal(k, p) for k, p in zip(km, pm)]
+    log(f"K7{suffix} match-only epilogue: P, d2, rows equal {same}; "
+        f"{int((pm[2] >= 0).sum())} of {src.shape[0]} queries matched")
+    check(all(same), f"K7{suffix} matches differ from the plain version's")
     # Work: d² (8 operations) for every (valid query, window row) pair,
-    # and ~80 for each valid query's match and partials.
+    # and ~80 for each valid query's match and sums.
     valid_b = (qmask > 0.5).reshape(-1, block).sum(1)
     pairs = int((valid_b * length).sum())
+    kept = (qmask > 0.5) & (pm[1] <= thr2) & (pm[2] >= 0)
+    walk_bytes = icp_bytes(torch, src, sorted_x, lo, length, valid_b)
     b_ms, b_by = bound(8.0 * pairs + 80.0 * int(valid_b.sum()),
-                       nbytes(pts, qmask, packed, lo, length, kp))
+                       walk_bytes + 12 * int(pm[2][kept].unique().numel())
+                       + nbytes(ks))
     entry.update({
-        f"max_abs_err{suffix}": err,
+        f"max_abs_err{suffix}": err, f"pairs{suffix}": pairs,
+        f"window_rows_mean{suffix}": float(length.float().mean()),
         f"ms{suffix}": cuda_ms(torch, lambda: real(*args)),
-        f"plain_ms{suffix}": cuda_ms(
-            torch, lambda: icp_stats.icp_p2plane_stats_plain(*args)),
+        f"device_ms{suffix}": per_call_device_ms(torch, lambda: real(*args)),
+        f"plain_ms{suffix}": cuda_ms(torch, lambda: plain(*args)),
         f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by,
+        # One ICP iteration as the host loop runs it: the pass and its
+        # readback.
+        f"iteration_ms{suffix}": cuda_ms(torch, lambda: stats(Th).vec.cpu()),
     })
+    log(f"K7{suffix}: {entry['ms' + suffix]:.4f} ms (device "
+        f"{entry['device_ms' + suffix]:.4f}), one iteration with its readback "
+        f"{entry['iteration_ms' + suffix]:.4f}, plain "
+        f"{entry['plain_ms' + suffix]:.4f}, bound {b_ms:.5f} ({b_by})")
+    if match_entry is None:
+        return
+    mb_ms, mb_by = bound(8.0 * pairs + 20.0 * int(valid_b.sum()),
+                         walk_bytes + nbytes(*km))
+    match_entry.update({
+        f"max_abs_err{suffix}": float((km[1] - pm[1]).abs().max()),
+        f"ms{suffix}": cuda_ms(torch, lambda: icp_stats.icp_matches(*margs)),
+        f"device_ms{suffix}": per_call_device_ms(
+            torch, lambda: icp_stats.icp_matches(*margs)),
+        f"plain_ms{suffix}": cuda_ms(
+            torch, lambda: icp_stats.icp_matches_plain(*margs)),
+        f"bound_ms{suffix}": mb_ms, f"bound_by{suffix}": mb_by,
+    })
+    log(f"K7{suffix} match-only: {match_entry['ms' + suffix]:.4f} ms "
+        f"(device {match_entry['device_ms' + suffix]:.4f}), plain "
+        f"{match_entry['plain_ms' + suffix]:.4f}, bound {mb_ms:.5f} "
+        f"({mb_by})")
+
+
+def icp_bytes(torch, src, sorted_x, lo, length, valid_b):
+    """Bytes K7's walk must read: the source rows and their mask, the
+    coordinate planes of the target rows that some block's window covers,
+    and, for each block with a valid query, the sorted_x entries of two
+    binary searches. (The sums also read the kept matches' normals; both
+    modes write their own outputs.)"""
+    import math
+
+    m = sorted_x.shape[0]
+    searches = 2 * int((valid_b > 0).sum()) * math.ceil(math.log2(m + 1))
+    return (16 * src.shape[0]
+            + 12 * covered_columns(torch, lo, length, m) + 4 * searches)
 
 
 def reference_route(torch, np, dev):
@@ -515,7 +606,7 @@ def reference_route(torch, np, dev):
     torch.cuda.synchronize()
     log(f"bucket 8192: {sd.count()} / {td.count()} rows")
 
-    k5, k6, k7 = {}, {}, {}
+    k5, k6, k7, k7m = {}, {}, {}, {}
     sfx = "_b8192"
     nn_phase(torch, nn, sf.descriptors, sd.mask, tf.descriptors, tf.mask,
              sfx, k5)
@@ -544,7 +635,8 @@ def reference_route(torch, np, dev):
     T_true[:3, :3] = torch.from_numpy(R_true).to(dev)
     T_true[:3, 3] = torch.from_numpy(t_true).to(dev)
     icp_phase(torch, icp, icp_stats, icp.build_icp_target(td), sd.points,
-              sd.mask, T_true, VOXEL * cfg.icp_distance_factor, sfx, k7)
+              sd.mask, T_true, VOXEL * cfg.icp_distance_factor, sfx, k7,
+              k7m)
 
     def pair():
         return tpu3d_torch.register_pair(src, tgt, cfg)
@@ -587,8 +679,67 @@ def reference_route(torch, np, dev):
         "fitness": float(refined.fitness),
         "coarse_fitness": float(coarse.fitness), "rot_err": rot_err,
         "trans_err": trn_err, "launches": launches,
+        "point_to_point": knob_pair(
+            torch, np, src, tgt, tpu3d_torch.RegistrationConfig(
+                voxel_size=VOXEL, use_point_to_plane=False),
+            R_true, t_true, "bucket 8192, point-to-point", k7m, sfx),
     }
-    return k5, k6, k7, route
+    return k5, k6, k7, k7m, route
+
+
+def knob_pair(torch, np, src, tgt, cfg, R_true, t_true, label, k7m=None,
+              sfx=""):
+    """``register_pair`` with ``cfg``'s two_stage or use_point_to_plane
+    knob: the route it asks for ran (the two-stage scorer, or K7's
+    match-only epilogue and never its sums), the quality gate, and warm
+    pair times. Puts the epilogue's launches into ``k7m``."""
+    import tpu3d_torch
+    from tpu3d_torch.ops import icp_stats, ransac
+
+    calls = []
+    two_stage = ransac._two_stage
+
+    def counted(*a):
+        calls.append(1)
+        return two_stage(*a)
+
+    def pair():
+        return tpu3d_torch.register_pair(src, tgt, cfg)
+
+    ransac._two_stage = counted
+    try:
+        pair()  # warm
+        calls.clear()
+        icp_stats.icp_matches.launches = 0
+        icp_stats.icp_p2plane_stats.launches = 0
+        torch.cuda.synchronize()
+        times, (refined, coarse) = host_ms(torch, pair, warm=0, reps=3)
+    finally:
+        ransac._two_stage = two_stage
+    matches = icp_stats.icp_matches.launches
+    sums = icp_stats.icp_p2plane_stats.launches
+    if cfg.use_point_to_plane:
+        check(calls, f"{label}: the two-stage scorer did not run")
+    else:
+        check(matches > 0 and sums == 0,
+              f"{label}: K7 match-only {matches}, sums {sums} launches")
+    if k7m is not None:
+        k7m["launches" + sfx] = matches // 3
+    rot_err, trn_err = gate(np, refined, R_true, t_true)
+    log(f"{label}: pose error rot {rot_err:.2e} trans {trn_err:.2e} m, "
+        f"fitness {float(refined.fitness):.5f}, coarse "
+        f"{float(coarse.fitness):.5f}, pairs {[round(t, 2) for t in times]} "
+        f"ms, two-stage scorer runs {len(calls) // 3}, K7 match-only "
+        f"launches {matches // 3} a pair")
+    return {
+        "knob": label, "rot_err": rot_err, "trans_err": trn_err,
+        "fitness": float(refined.fitness),
+        "coarse_fitness": float(coarse.fitness), "pair_ms": times,
+        "pair_ms_median": statistics.median(times),
+        "two_stage_runs_per_pair": len(calls) // 3,
+        "k7_match_only_launches_per_pair": matches // 3,
+        "k7_sums_launches_per_pair": sums // 3,
+    }
 
 
 def covered_columns(torch, lo, ln, m):
@@ -617,10 +768,10 @@ def sweep_bytes(torch, q_rows, packed, lo, ln, block, out_values,
 
 def sweep_phase(torch, name, fn, plain, args, block, q8, entry, sfx,
                 per_neighbour, q_rows, out_values, out_check,
-                every_query=False):
+                every_query=False, **kw):
     """One prepare sweep's kernel against its plain version."""
-    ko = fn(*args, block)
-    po = plain(*args, block)
+    ko = fn(*args, block, **kw)
+    po = plain(*args, block, **kw)
     torch.cuda.synchronize()
     err = float((ko - po).abs().max())
     neighbours = out_check(ko, po)
@@ -634,21 +785,25 @@ def sweep_phase(torch, name, fn, plain, args, block, q8, entry, sfx,
     entry.update({
         f"max_abs_err{sfx}": err, f"pairs{sfx}": pairs,
         f"neighbours{sfx}": neighbours,
-        f"ms{sfx}": cuda_ms(torch, lambda: fn(*args, block)),
-        f"plain_ms{sfx}": cuda_ms(torch, lambda: plain(*args, block)),
+        f"ms{sfx}": cuda_ms(torch, lambda: fn(*args, block, **kw)),
+        f"device_ms{sfx}": per_call_device_ms(
+            torch, lambda: fn(*args, block, **kw)),
+        f"plain_ms{sfx}": cuda_ms(torch, lambda: plain(*args, block, **kw)),
         f"bound_ms{sfx}": b_ms, f"bound_by{sfx}": b_by,
         f"library_ms{sfx}": None,
     })
     log(f"{name}{sfx}: max abs err {err:.3e}, {pairs} pairs, {neighbours} "
-        f"neighbours, kernel {entry['ms' + sfx]:.4f} ms, plain "
+        f"neighbours, kernel {entry['ms' + sfx]:.4f} ms (device "
+        f"{entry['device_ms' + sfx]:.4f}), plain "
         f"{entry['plain_ms' + sfx]:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
     return ko
 
 
 def prepare_sweeps(torch, features, fused_features, al, lo, lens, block, r2,
-                   entries, sfx):
+                   entries, sfx, blocks=None):
     """K2, K3 and K4 against their plain versions on one aligned layout with
-    windows ``lens`` (sweeps A, B, C), each fed the kernel chain's inputs."""
+    windows ``lens`` (sweeps A, B, C), each fed the kernel chain's inputs;
+    ``blocks`` K4's block list (the sparse prepare's query blocks)."""
     len_a, len_b, len_c = lens
     e2, e3, e4 = entries
     q8 = fused_features.moments_operands(al)
@@ -699,20 +854,65 @@ def prepare_sweeps(torch, features, fused_features, al, lo, lens, block, r2,
     pc = fused_features.fpfh_operands(al, spfh40)
 
     def k4_check(ko, po):
-        check(torch.allclose(ko, po, rtol=1e-4, atol=1e-6),
-              f"K4{sfx} disagrees")
+        check(torch.equal(ko, po), f"K4{sfx} differs from its plain version")
         # Its neighbours are sweep B's (the same radius test on raw rather
         # than centred coordinates) on the blocks its own windows serve.
         rows = (q8[3] > 0.5) & (len_c > 0).any(1).repeat_interleave(block)
         return int(spfh40[33][rows].sum())
 
     # K4 reads raw xyz and returns 33 weighted sums.
-    sweep_phase(torch, "K4", features.fpfh_sweep, features.fpfh_sweep_plain,
-                (q8, pc, lo, len_c, r2), block, q8, e4, sfx, 69.0, 3, 33,
-                k4_check)
+    k4 = sweep_phase(torch, "K4", features.fpfh_sweep,
+                     features.fpfh_sweep_plain, (q8, pc, lo, len_c, r2),
+                     block, q8, e4, sfx, 69.0, 3, 33, k4_check,
+                     blocks=blocks)
+    if blocks is None:
+        k4_plans(torch, features, (q8, pc, lo, len_c, r2), block, k4, e4,
+                 sfx)
 
 
-def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7):
+def k4_plans(torch, features, args, block, out, entry, sfx):
+    """Both of K4's kernels on one dense layout, each forced through
+    ``features.fpfh_plan``: bit for bit equal to the plan's own result,
+    and each one's device ms per call, the data behind the plan's
+    threshold."""
+    plan = features.fpfh_plan
+    nblocks = args[2].shape[0]
+    sms = torch.cuda.get_device_properties(
+        args[0].device).multi_processor_count
+    slices, _ = plan(block, nblocks, False, sms)
+    entry[f"plan{sfx}"] = "threads" if slices == 1 else "lanes"
+    forced = {"threads": (1, block // 32), "lanes": (block // 32, 8)}
+    try:
+        for name, launch in forced.items():
+            features.fpfh_plan = lambda *a, launch=launch: launch
+            check(torch.equal(features.fpfh_sweep(*args, block), out),
+                  f"K4{sfx}: the {name} kernel differs")
+            entry[f"device_ms_{name}{sfx}"] = per_call_device_ms(
+                torch, lambda: features.fpfh_sweep(*args, block))
+    finally:
+        features.fpfh_plan = plan
+    log(f"K4{sfx}: {nblocks} blocks, plan {entry['plan' + sfx]}; device "
+        f"ms threads {entry['device_ms_threads' + sfx]:.4f}, lanes "
+        f"{entry['device_ms_lanes' + sfx]:.4f}")
+
+
+def sparse_sweeps(torch, features, fused_features, cloud, radius, r2,
+                  entries, sfx):
+    """prepare_sweeps on the sparse prepare's operands: block 256, the
+    member sets' windows and K4's block list, as fused_prepare_sparse
+    builds them for 8,192 rows."""
+    import numpy as np
+
+    al, lo, ln = fused_features.aligned_layout(cloud, radius, 256)
+    nq = 8192 // 256
+    lens = fused_features.member_lengths(lo, ln, 256, nq)[:3]
+    blocks = torch.from_numpy(fused_features.query_blocks(
+        lo.shape[0], nq).astype(np.int32)).to(lo.device)
+    prepare_sweeps(torch, features, fused_features, al, lo, lens, 256, r2,
+                   entries, sfx, blocks=blocks)
+
+
+def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7, k7m):
     """Phase 4: the at-scale route (sparse arm)."""
     import tpu3d_torch
     from tpu3d_torch import registration as reg
@@ -761,10 +961,8 @@ def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7):
     prepare_sweeps(torch, features, fused_features, al, lo, (ln, ln, ln),
                    128, r2, (e2, e3, e4), "")
     # The source's sparse prepare: block 256, the member sets' windows.
-    al, lo, ln = fused_features.aligned_layout(sd, radius, 256)
-    lens = fused_features.member_lengths(lo, ln, 256, 8192 // 256)[:3]
-    prepare_sweeps(torch, features, fused_features, al, lo, lens, 256, r2,
-                   (e2, e3, e4), "_sparse256")
+    sparse_sweeps(torch, features, fused_features, sd, radius, r2,
+                  (e2, e3, e4), "_sparse256")
 
     # --- b. sparse equals dense on the source, block 256 -------------------
     _, dense_f = fused_features.fused_prepare_features(sd, radius, block=256)
@@ -805,8 +1003,9 @@ def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7):
     icp_phase(torch, icp, icp_stats, icp.build_icp_target(tdp),
               sd.points[: stride * 16384 : stride],
               sd.mask[: stride * 16384 : stride], T_true,
-              voxel * cfg.icp_distance_factor, "", k7)
+              voxel * cfg.icp_distance_factor, "", k7, k7m)
     k7["library_ms"] = None
+    k7m["library_ms"] = None
 
     # --- d. the main path ---------------------------------------------------
     def pair():
@@ -869,16 +1068,35 @@ def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7):
         "coarse_fitness": float(coarse.fitness), "rot_err": rot_err,
         "trans_err": trn_err, "launches": launches, "peak_mem_mb": peak_mb,
         "device_busy_ms": device_busy_ms(torch, pair),
+        "two_stage": knob_pair(
+            torch, np, src, tgt, tpu3d_torch.RegistrationConfig(
+                voxel_size=voxel, two_stage="on"),
+            R_true, t_true, "at scale, two_stage on"),
+        "point_to_point": knob_pair(
+            torch, np, src, tgt, tpu3d_torch.RegistrationConfig(
+                voxel_size=voxel, use_point_to_plane=False),
+            R_true, t_true, "at scale, point-to-point", k7m),
     }
     return [e for e, _ in sweeps], route
 
 
-def per_call_device_ms(torch, fn, calls=5):
-    """Device kernel time of one call of ``fn``, averaged over ``calls``
-    calls (torch.profiler): what the card spends, without the host's
-    launch gaps that CUDA events around one call include."""
+def per_call_device_ms(torch, fn, calls=10):
+    """Device time of one call of ``fn``: ``calls`` calls enqueued behind a
+    device-side sleep, so that the host's launch gaps between them do not
+    show, timed by two CUDA events, over ``calls``. (The profiler's
+    per-kernel sums came back empty for some calls late in a long run.)
+    ``fn`` must not synchronise."""
     fn()
-    return device_busy_ms(torch, lambda: [fn() for _ in range(calls)]) / calls
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # ~10 ms: the host queues the calls
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def device_busy_ms(torch, fn):
@@ -936,6 +1154,8 @@ def k9_phase(torch, depth, depth_m, sigma_s, sfx, entry):
     entry.update({
         f"max_abs_err{sfx}": err, f"radius{sfx}": r, f"taps{sfx}": taps,
         f"ms{sfx}": cuda_ms(
+            torch, lambda: depth.bilateral_filter(depth_m, sigma_s, 0.05)),
+        f"device_ms{sfx}": per_call_device_ms(
             torch, lambda: depth.bilateral_filter(depth_m, sigma_s, 0.05)),
         f"plain_ms{sfx}": cuda_ms(
             torch, lambda: depth.bilateral_filter_plain(depth_m, sigma_s,
@@ -1087,11 +1307,17 @@ class RunProbe:
         return waypoints, total, stages
 
 
-def bin_frame_route(torch, np, counters, tmp, frame, K, voxel=0.002):
+def bin_frame_route(torch, np, counters, tmp, frame, K, voxel=0.002,
+                    knobs=False, entries=None):
     """5c: ``Pipeline.run()`` on the bin frame, from files as a user feeds
     it: the depth PNG and a gray RGB PNG as dummy data, four mask PNGs in
     a mask directory, and the reference model as a PLY file (the frame
-    itself, unfiltered, so every instance's true pose is the identity)."""
+    itself, unfiltered, so every instance's true pose is the identity).
+    ``knobs``: once more with ``two_stage: on`` and ``use_point_to_plane:
+    false``, two runs, K7 counted by its match-only epilogue, held to the
+    same checks. ``entries``
+    (the kernels line's K2, K3, K4, K7 entries): those kernels against
+    their plain versions at this frame's shapes, after the run."""
     import cv2
 
     from tpu3d_torch.config import PipelineConfig
@@ -1111,6 +1337,9 @@ def bin_frame_route(torch, np, counters, tmp, frame, K, voxel=0.002):
     cfg.depth.scale_to_meters = 10000.0
     cfg.depth.bilateral_filter = True
     cfg.registration.voxel_size = voxel
+    if knobs:
+        cfg.registration.two_stage = "on"
+        cfg.registration.use_point_to_plane = False
     cfg.camera_extrinsics = np.eye(4, dtype=np.float32)
     cfg.dummy_depth_path = os.path.join(tmp, "bin_depth.png")
     cfg.dummy_rgb_path = os.path.join(tmp, "bin_rgb.png")
@@ -1120,7 +1349,7 @@ def bin_frame_route(torch, np, counters, tmp, frame, K, voxel=0.002):
           and cv2.imwrite(cfg.dummy_rgb_path,
                           np.full((height, width, 3), 90, np.uint8)),
           "could not write the frame's PNGs")
-    os.makedirs(cfg.segmentation.masks_input_dir)
+    os.makedirs(cfg.segmentation.masks_input_dir, exist_ok=True)
     for i, m in enumerate(bin_masks(np, width, height)):
         cv2.imwrite(os.path.join(cfg.segmentation.masks_input_dir,
                                  f"mask_{i}.png"), m)
@@ -1166,11 +1395,32 @@ def bin_frame_route(torch, np, counters, tmp, frame, K, voxel=0.002):
         check(np.isfinite(T).all() and rot < 0.02 and trn < 0.005,
               f"quality gate failed: rotation {rot}, translation {trn}")
     results = sorted(pipe.instance_results, key=lambda r: r["instance_id"])
-    log(f"bin frame: capacities {caps}, fitness "
+    log(f"bin frame{' (two_stage on, point-to-point)' if knobs else ''}: "
+        f"capacities {caps}, fitness "
         f"{[round(r['fitness'], 5) for r in results]}, pose errors {errs}, "
         f"{len(waypoints)} waypoints after dedup, {first_ms:.1f} ms cold")
+    if knobs:
+        again = probe.run()[1]
+        check(same_poses(np, poses, probe.poses),
+              "a second run's poses differ from the first's")
+        return {
+            "route": "pipeline, bin frame, two_stage: on, "
+                     "use_point_to_plane: false",
+            "degraded": pipe._degraded, "instance_capacities": caps,
+            "fitness": [r["fitness"] for r in results],
+            "coarse_fitness": [r["coarse_fitness"] for r in results],
+            "pose_errors": errs,
+            "launches": launches, "pipeline_ms_cold": first_ms,
+            "pipeline_ms_warm": again,
+        }
+    if entries is not None:
+        bin_shapes(torch, np, probe, voxel, entries)
 
-    warm = [probe.run() for _ in range(2)]
+    warm = []
+    for _ in range(2):
+        warm.append(probe.run())
+        check(same_poses(np, poses, probe.poses),
+              "a warm run's poses differ from the cold run's")
     busy = device_busy_ms(torch, probe.run)
     return {
         "route": "pipeline, bin frame",
@@ -1192,9 +1442,44 @@ def bin_frame_route(torch, np, counters, tmp, frame, K, voxel=0.002):
     }
 
 
-def pipeline_phase(torch, np, counters, k9):
+def same_poses(np, a, b):
+    """Whether two runs' poses are equal bit for bit."""
+    return len(a) == len(b) and all(np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def bin_shapes(torch, np, probe, voxel, entries):
+    """K2-K4 and K7 against their plain versions on what the bin frame's
+    run gave them: the reference's dense prepare (block 128), the first
+    instance's sparse one, and that instance's ICP against the reference
+    at its true pose, the identity."""
+    from tpu3d_torch.ops import features, fused_features, icp, icp_stats
+    from tpu3d_torch.ops.ransac import decimation_stride
+
+    e2, e3, e4, k7 = entries
+    radius = float(np.float32(voxel * 5.0))
+    r2 = float(np.float32(radius) * np.float32(radius))
+    ref = probe.reference[0]
+    al, lo, ln = fused_features.aligned_layout(ref, radius, 128)
+    prepare_sweeps(torch, features, fused_features, al, lo, (ln, ln, ln),
+                   128, r2, (e2, e3, e4), "_bin_reference")
+    inst = probe.prepared[0][0]
+    sparse_sweeps(torch, features, fused_features, inst, radius, r2,
+                  (e2, e3, e4), "_bin_sparse")
+    pts, mask = inst.points, inst.mask
+    if pts.shape[0] >= 2 * 16384:  # icp_refine's source subset
+        stride = decimation_stride(pts.shape[0], 16384)
+        pts, mask = pts[: stride * 16384: stride], mask[: stride * 16384:
+                                                         stride]
+    icp_phase(torch, icp, icp_stats, icp.build_icp_target(ref), pts, mask,
+              torch.eye(4, device=pts.device), voxel * 0.4, "_bin", k7)
+
+
+def pipeline_phase(torch, np, counters, k9, entries):
     """Phase 5: K9 against its plain version, the CLI demo, and the bin
-    frame through the pipeline."""
+    frame through the pipeline, also with both registration knobs set."""
+    from tpu3d_torch.ops import icp_stats
+
     import tempfile
 
     from tpu3d_torch.models.fixtures import bin_frame
@@ -1213,7 +1498,11 @@ def pipeline_phase(torch, np, counters, k9):
              "_full_frame", k9)
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_demo(torch, counters, tmp)
-        route = bin_frame_route(torch, np, counters, tmp, frame, K)
+        route = bin_frame_route(torch, np, counters, tmp, frame, K,
+                                entries=entries)
+        knob_counters = dict(counters, K7=icp_stats.icp_matches)
+        route["knobs"] = bin_frame_route(torch, np, knob_counters, tmp,
+                                         frame, K, knobs=True)
     return cli, route
 
 
@@ -1259,6 +1548,8 @@ def walk_phase(torch, nn_walk, q4, packed, lo, ln, r2, block, sub, sfx,
         + 2 * q4.shape[1]) + nbytes(lo, ln))
     entry.update({
         f"ms{sfx}": cuda_ms(torch, lambda: nn_walk.top1_walk(
+            q4, packed, lo, ln, r2, block, sub)),
+        f"device_ms{sfx}": per_call_device_ms(torch, lambda: nn_walk.top1_walk(
             q4, packed, lo, ln, r2, block, sub)),
         f"plain_ms{sfx}": cuda_ms(torch, lambda: nn_walk.top1_walk_plain(
             q4, packed, lo, ln, r2, block), warm=1, reps=3),
@@ -1417,10 +1708,8 @@ def scene_pair(torch, np, dev, n, entries, counters):
     al, lo, ln = fused_features.aligned_layout(tgt, radius, 128)
     prepare_sweeps(torch, features, fused_features, al, lo, (ln, ln, ln),
                    128, r2, (e2, e3, e4), "_1m")
-    al, lo, ln = fused_features.aligned_layout(src, radius, 256)
-    lens = fused_features.member_lengths(lo, ln, 256, 8192 // 256)[:3]
-    prepare_sweeps(torch, features, fused_features, al, lo, lens, 256, r2,
-                   (e2, e3, e4), "_sparse256_1m")
+    sparse_sweeps(torch, features, fused_features, src, radius, r2,
+                  (e2, e3, e4), "_sparse256_1m")
     sub_c, sub_f, _ = s_p
     nn_phase(torch, nn, sub_f.descriptors, sub_f.mask, tgt_f.descriptors,
              tgt_f.mask, "_1m", k5, library=False,
@@ -1522,6 +1811,27 @@ def scene_batch(torch, np, dev, n_inst, entries, counters):
           f"a kernel did not launch: {launches}")
     for e, name in zip(entries, counters):
         e["launches_batch"] = launches[name]
+    # K2-K4 and K7 at the batch's own shapes: the target's and the first
+    # source's dense prepares, and that source's ICP at its true pose.
+    from tpu3d_torch.ops import features, icp, icp_stats
+
+    e2, e3, e4, _, _, k7 = entries
+    r2 = float(np.float32(radius) * np.float32(radius))
+    for pts_np, cap, sfx in ((tgt_np, ntgt, "_batch_target"),
+                             (src_nps[0], nsrc, "_batch_source")):
+        cloud = PointCloud.from_numpy(pts_np, capacity=cap, device=dev)
+        al, lo, ln = fused_features.aligned_layout(cloud, radius, 128)
+        prepare_sweeps(torch, features, fused_features, al, lo,
+                       (ln, ln, ln), 128, r2, (e2, e3, e4), sfx)
+    tgt_p, _ = fused_features.fused_prepare_features(
+        PointCloud.from_numpy(tgt_np, capacity=ntgt, device=dev), radius)
+    src0 = PointCloud.from_numpy(src_nps[0], capacity=nsrc, device=dev)
+    Rb, tb = poses[0]
+    T0 = torch.eye(4, device=dev)
+    T0[:3, :3] = torch.from_numpy(Rb).to(dev)
+    T0[:3, 3] = torch.from_numpy(tb).to(dev)
+    icp_phase(torch, icp, icp_stats, icp.build_icp_target(tgt_p),
+              src0.points, src0.mask, T0, voxel * 0.4, "_batch", k7)
     return {
         "route": "64-instance batch",
         "main_path": "fused_prepare_features x 65, register_batch",
@@ -1618,7 +1928,8 @@ def run(args):
     log(f"kernels built in {build_s:.1f} s")
     resources = kernel_resources(report.getvalue())
 
-    k5, k6, k7, ref_route = reference_route(torch, np, dev)
+    card_states = {"phase 3": card_state()}
+    k5, k6, k7, k7m, ref_route = reference_route(torch, np, dev)
     k5.update({"name": "nn_top1 (K5)", "route": "cuda",
                "source": "tpu3d_torch/csrc/nn.cu",
                "replaces": "tpu3d/ops/nn_pallas.py:111"})
@@ -1628,8 +1939,13 @@ def run(args):
     k7.update({"name": "icp_p2plane_stats (K7, with the one-window K1 walk)",
                "route": "cuda", "source": "tpu3d_torch/csrc/icp_stats.cu",
                "replaces": "tpu3d/ops/icp_pallas.py:141"})
+    k7m.update({"name": "icp_matches (K7's match-only epilogue, "
+                        "point-to-point ICP)",
+                "route": "cuda", "source": "tpu3d_torch/csrc/icp_stats.cu",
+                "replaces": "tpu3d/ops/icp_pallas.py:141"})
+    card_states["phase 4"] = card_state()
     sweeps, scale_route = at_scale_route(torch, np, dev, args.points,
-                                         args.voxel, k5, k6, k7)
+                                         args.voxel, k5, k6, k7, k7m)
     scale_route["build_s"] = build_s
 
     from tpu3d_torch.ops import (
@@ -1648,16 +1964,21 @@ def run(args):
                 "K6": ransac_score.score_hypotheses,
                 "K7": icp_stats.icp_p2plane_stats,
                 "K9": depth.bilateral_filter}
-    cli, bin_route = pipeline_phase(torch, np, counters, k9)
+    card_states["phase 5"] = card_state()
+    cli, bin_route = pipeline_phase(torch, np, counters, k9,
+                                    sweeps + [k7])
     k9["launches"] = bin_route["launches"]["K9"]
     kernels = sweeps + [k5, k6, k7, k9]
     for entry, name in zip(kernels, counters):
         entry["launches_pipeline"] = bin_route["launches"][name]
         entry["launches_cli"] = cli["launches"][name]
+    card_states["phase 6"] = card_state()
     k8, probe_entries, scene_routes = scene_phase(
         torch, np, dev, args, sweeps + [k5, k6, k7],
         {k: f for k, f in counters.items() if k != "K9"})
     k8["card"] = smi
+    k7m["launches_pipeline_knobs"] = bin_route["knobs"]["launches"]["K7"]
+    kernels = kernels + [k7m]
     for e in kernels + [k8] + probe_entries:
         # The tensor-core bound and the split count exist for K5's
         # descriptor route and K6 only.
@@ -1672,6 +1993,9 @@ def run(args):
 
     print(json.dumps({"kernels": kernels + [k8] + probe_entries}),
           flush=True)
+    card_states["end"] = card_state()
+    log(f"card state by phase: {card_states}")
+    scene_routes[-1]["card_states"] = card_states
     for route in [ref_route, scale_route, cli, bin_route] + scene_routes:
         print(json.dumps(route), flush=True)
     return {

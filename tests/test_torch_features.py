@@ -105,6 +105,47 @@ def test_k4_plain_matches_pallas(operands):
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
+def test_k4_block_list(operands):
+    """A block list runs K4 on those blocks alone: their rows equal the
+    full sweep's, every other row is zero; the sparse prepare's list is
+    its query blocks, which hold every live sweep-C window."""
+    al, lo, (len_a, _, len_c), block = operands
+    q8 = fused_features.moments_operands(al)
+    rng = np.random.default_rng(6)
+    spfh = np.zeros((40, q8.shape[1]), np.float32)
+    spfh[:33] = rng.uniform(0, 0.1, (33, q8.shape[1]))
+    packed = fused_features.fpfh_operands(al, torch.from_numpy(spfh))
+    full = features.fpfh_sweep(q8, packed, lo, len_c, R2, block)
+    nbk = lo.shape[0]
+    live = np.nonzero(len_c.sum(1).numpy() > 0)[0]
+    ids = live[::2]
+    got = features.fpfh_sweep(q8, packed, lo, len_c, R2, block,
+                              blocks=torch.from_numpy(ids.astype(np.int32)))
+    rows = np.zeros(nbk, bool)
+    rows[ids] = True
+    rows = np.repeat(rows, block)
+    assert torch.equal(got[torch.from_numpy(rows)],
+                       full[torch.from_numpy(rows)])
+    assert float(got[torch.from_numpy(rows)].abs().sum()) > 0
+    assert not got[torch.from_numpy(~rows)].any()
+    if len_c is not len_a:  # the sparse member sets
+        assert set(live) <= set(fused_features.query_blocks(nbk, 8))
+
+
+@pytest.mark.parametrize("block,nblocks,listed,plan", [
+    (128, 911, False, (1, 4)), (256, 700, False, (1, 8)),
+    (128, 661, False, (1, 4)), (128, 660, False, (4, 8)),
+    (128, 255, False, (4, 8)), (128, 191, False, (4, 8)),
+    (128, 4000, True, (4, 8)), (256, 520, True, (8, 8)),
+])
+def test_k4_launch_plan(block, nblocks, listed, plan):
+    """More than five blocks per SM (132 here): one CTA per block, a thread
+    per query; fewer, or a block list: slices of 32 queries on 8 warps."""
+    slices, warps = features.fpfh_plan(block, nblocks, listed, 132)
+    assert (slices, warps) == plan
+    assert block // slices == (32 if slices > 1 else warps * 32)
+
+
 def test_newton_eigvec_matches_jax(rng):
     """Agreement to 1e-6 where the eigenvector is well defined: eigenvalue
     gaps of at least 20 % of the largest (XLA contracts some products into

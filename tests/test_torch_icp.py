@@ -1,6 +1,7 @@
 """ICP port parity: the K7 plain version against the JAX slab stats (XLA
-and Pallas interpret), and ``icp_refine`` against the JAX one from the same
-start, on the slab and the brute backends."""
+and Pallas interpret) and its match stage against the JAX slab top-1, and
+``icp_refine`` against the JAX one from the same start, on the slab and
+the brute backends, point-to-plane and point-to-point."""
 
 import jax
 import jax.numpy as jnp
@@ -115,9 +116,9 @@ def test_k7_plain_matches_jax(angle):
     ):
         assert float(got.n_corr) == float(nc)
         np.testing.assert_allclose(float(got.sum_d2), float(sd), rtol=1e-5)
-        np.testing.assert_allclose(got.ata.numpy(), np.asarray(ata),
-                                   rtol=2e-5, atol=1e-5)
-        np.testing.assert_allclose(got.atb.numpy(), np.asarray(atb),
+        np.testing.assert_allclose(got.vec[:36].reshape(6, 6).numpy(),
+                                   np.asarray(ata), rtol=2e-5, atol=1e-5)
+        np.testing.assert_allclose(got.vec[36:42].numpy(), np.asarray(atb),
                                    rtol=2e-5, atol=1e-6)
 
 
@@ -130,7 +131,7 @@ def test_k7_empty_windows_give_zero_stats():
                                     torch.ones(128, dtype=torch.bool), 0.1)
     s = stats(torch.eye(4))
     assert float(s.n_corr) == 0.0 and float(s.sum_d2) == 0.0
-    assert float(s.ata.abs().max()) == 0.0 and float(s.atb.abs().max()) == 0.0
+    assert float(s.vec[:42].abs().max()) == 0.0
 
 
 def test_partials_layout_round_trip(rng):
@@ -214,8 +215,131 @@ def test_icp_source_subset_matches_jax(prepared_4096, final_metrics,
     assert torch.equal(again.transformation, got.transformation)
 
 
-def test_point_to_point_raises():
-    rng = np.random.default_rng(2)
-    c = _to_torch(_make(rng, n=100, cap=128))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        icp.icp_refine(c, c, torch.eye(4), 0.1, point_to_plane=False)
+def _start(R, t, a=0.01, dt=(0.003, -0.002, 0.001)):
+    T0 = np.eye(4, dtype=np.float32)
+    T0[:3, :3] = R @ np.array(
+        [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]],
+        np.float32)
+    T0[:3, 3] = t + np.float32(dt)
+    return T0
+
+
+@pytest.mark.parametrize("n,backend,normals", [
+    (4096, "slab", True), (2048, "brute", True), (4096, "slab", False),
+    (2048, "brute", False),
+])
+def test_point_to_point_matches_jax(n, backend, normals):
+    """point_to_plane=False on both backends, and a target without normals
+    (point-to-point whatever the flag): JAX's pose within 1e-5 (float32
+    SVDs of two libraries) and its inlier count."""
+    sd, td, R, t = _prepared(n)
+    assert (td.capacity >= 4096) == (backend == "slab")
+    if not normals:
+        td = td._replace(normals=None)
+    T0 = _start(R, t)
+    ref = jax_icp_refine(sd, td, jnp.asarray(T0), VOXEL * 0.4,
+                         max_iterations=60, point_to_plane=not normals)
+    got = icp.icp_refine(_to_torch(sd), _to_torch(td), _t(T0), VOXEL * 0.4,
+                         max_iterations=60, point_to_plane=not normals)
+    np.testing.assert_allclose(got.transformation.numpy(),
+                               np.asarray(ref.transformation), atol=1e-5)
+    n_valid = int(np.asarray(sd.mask).sum())
+    assert round(float(got.fitness) * n_valid) == round(
+        float(ref.fitness) * n_valid)
+    np.testing.assert_allclose(float(got.rmse), float(ref.rmse), rtol=1e-3,
+                               atol=1e-5)
+    assert float(got.fitness) > 0.9
+
+
+@pytest.mark.parametrize("final_metrics,polish_threshold", [
+    ("exact", 0.5), ("auto", 2.0),
+])
+def test_point_to_point_subset_matches_jax(prepared_4096, final_metrics,
+                                           polish_threshold):
+    """The strided subset, its final metrics and the forced full-source
+    polish with the point-to-point objective."""
+    sd, td, R, t = prepared_4096
+    T0 = _start(R, t, a=0.0, dt=(0.002, -0.001, 0.001))
+    kw = dict(max_iterations=40, src_cap=1024, final_metrics=final_metrics,
+              polish_threshold=polish_threshold, point_to_plane=False)
+    ref = jax_icp_refine(sd, td, jnp.asarray(T0), VOXEL * 0.4, **kw)
+    got = icp.icp_refine(_to_torch(sd), _to_torch(td), _t(T0), VOXEL * 0.4,
+                         **kw)
+    np.testing.assert_allclose(got.transformation.numpy(),
+                               np.asarray(ref.transformation), atol=1e-5)
+    np.testing.assert_allclose(float(got.fitness), float(ref.fitness),
+                               atol=1e-3)
+    assert float(got.fitness) > 0.9
+
+
+def test_k7_match_stage_matches_jax_slab_top1():
+    """The match stage's plain version against the JAX package's slab
+    top-1 on the same transformed queries: the same kept matches (original
+    rows equal, d² to rounding), duplicate target rows resolving to the
+    lowest."""
+    rng = np.random.default_rng(4)
+    tgt = _make(rng, n=900, cap=1024)
+    pts = np.array(tgt.points)
+    pts[500:520] = pts[100:120]  # duplicates: the lower slab row wins
+    tgt = tgt._replace(points=jnp.asarray(pts))
+    src = _make(rng, n=700, cap=768)
+    thr = 0.12
+    index = icp.build_icp_target(_to_torch(tgt))
+    order = np.argsort(np.where(np.asarray(src.mask),
+                                np.asarray(src.points)[:, 0], 3e4),
+                       kind="stable")
+    stats = icp.SlabStats(index, _t(np.asarray(src.points)[order]),
+                          _t(np.asarray(src.mask)[order]), thr,
+                          point_to_plane=False)
+    T = torch.from_numpy(_start(np.eye(3, dtype=np.float32),
+                                np.zeros(3, np.float32), a=0.03))
+    P, d2, row = icp_stats.icp_matches_plain(*stats.kernel_args(T))
+    keep = (stats.qmask > 0.5) & (d2 <= stats.thr2)
+    from tpu3d.ops.slab import slab_top1 as jax_slab_top1
+
+    jidx, jd2, ovf = jax_slab_top1(jax.jit(jax_build_icp_target)(tgt).slab,
+                                   jnp.asarray(P.numpy()), thr,
+                                   slice_cap=1024)
+    jidx, jd2 = np.asarray(jidx), np.asarray(jd2)
+    assert not bool(ovf)
+    jkeep = (jd2 < 1e29) & (stats.qmask.numpy() > 0.5)
+    np.testing.assert_array_equal(keep.numpy(), jkeep)
+    assert 100 < int(keep.sum())
+    orig = index.slab.sorted_orig[row.clamp_min(0).long()].numpy()
+    np.testing.assert_array_equal(orig[jkeep], jidx[jkeep])
+    # XLA contracts the squares' sum into FMAs: d² agrees to 2 ulp.
+    np.testing.assert_allclose(d2.numpy()[jkeep], jd2[jkeep], rtol=2.4e-7,
+                               atol=0)
+    # A duplicated row is matched by its lower original (and slab) row.
+    dup = np.isin(orig[jkeep], np.arange(500, 520))
+    assert not dup.any()
+
+
+def test_kabsch_from_cross_cov_matches_jax(rng):
+    """The host Kabsch step against the JAX package's, on weighted
+    matches of a known pose and on a reflection-forcing set."""
+    from tpu3d.ops.transforms import kabsch_from_cross_cov as jax_kabsch
+
+    from tpu3d_torch.ops.transforms import kabsch_from_cross_cov
+
+    for flip in (False, True):
+        p = rng.uniform(-1, 1, (200, 3)).astype(np.float32)
+        a = 0.3
+        R0 = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                       [0, 0, 1]], np.float32)
+        q = p @ R0.T + np.float32([0.1, -0.2, 0.3])
+        if flip:
+            q[:, 2] *= -1
+        w = (rng.uniform(size=200) > 0.2).astype(np.float32)
+        sw = np.float32(w.sum())
+        sp, sq = (p * w[:, None]).sum(0), (q * w[:, None]).sum(0)
+        H = ((p - sp / sw) * w[:, None]).T @ (q - sq / sw)
+        R, t = kabsch_from_cross_cov(sw, sp, sq, H)
+        jR, jt = jax_kabsch(jnp.float32(sw), jnp.asarray(sp), jnp.asarray(sq),
+                            jnp.asarray(H))
+        np.testing.assert_allclose(R, np.asarray(jR), atol=1e-5)
+        np.testing.assert_allclose(t, np.asarray(jt), atol=1e-5)
+        assert abs(np.linalg.det(R) - 1.0) < 1e-5
+    R, t = kabsch_from_cross_cov(3.0, np.zeros(3), np.zeros(3),
+                                 np.full((3, 3), np.nan))
+    assert not np.isfinite(R).any() and not np.isfinite(t).any()

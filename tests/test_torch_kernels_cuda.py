@@ -287,8 +287,148 @@ def test_icp_stats_kernel_matches_plain(dev):
     assert icp_stats.icp_p2plane_stats.launches == before + 1
     assert float(sk.n_corr) == float(sp.n_corr) > 100
     torch.testing.assert_close(sk.sum_d2.cpu(), sp.sum_d2, rtol=1e-5, atol=0)
-    torch.testing.assert_close(sk.ata.cpu(), sp.ata, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(sk.atb.cpu(), sp.atb, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(sk.vec[:36].cpu(), sp.vec[:36], rtol=1e-4,
+                               atol=1e-5)
+    torch.testing.assert_close(sk.vec[36:42].cpu(), sp.vec[36:42],
+                               rtol=1e-4, atol=1e-6)
+
+
+def _k7_case():
+    """A target and query blocks of 64 that reach K7's edges: windows of
+    over 1,024 rows (three 512-row tiles), a run of 700 rows at one x
+    holding duplicates at row distances 1, 3, 4, 8, 512 and 513 (lane and
+    tile seams), one-row and empty windows, a block of invalid queries,
+    and invalid target rows at the end."""
+    g = torch.Generator().manual_seed(8)
+    a = torch.rand(3000, 3, generator=g) * torch.tensor([0.2, 0.3, 0.3])
+    run = torch.rand(700, 3, generator=g) * 0.3
+    run[:, 0] = 0.1
+    for i, d in enumerate((1, 3, 4, 8, 512, 513)):
+        run[30 * i + d] = run[30 * i]
+    iso = torch.tensor([[10.0, 0.0, 0.0], [11.0, 0.0, 0.0],
+                        [12.0, 0.0, 0.0]])
+    pts = torch.cat([a, run, iso])
+    _, order = torch.sort(pts[:, 0], stable=True)
+    pts = torch.cat([pts[order], torch.full((5, 3), 3.0e4)])
+    m = pts.shape[0]
+    nrm = torch.nn.functional.normalize(torch.randn(m, 3, generator=g), dim=1)
+    nrm[-5:] = 0.0
+    packed = torch.cat([pts.T, nrm.T]).contiguous()
+    sorted_x = pts[:, 0].contiguous()
+    blocks = [a[torch.randint(0, 3000, (64,), generator=g)]
+              + 0.01 * torch.randn(64, 3, generator=g) for _ in range(6)]
+    dup = run[[30 * i for i in range(6)]]  # each also 1-513 rows later
+    blocks.append(torch.cat([dup.repeat(8, 1),
+                             run[torch.randint(0, 700, (16,), generator=g)]]))
+    one = torch.zeros(64, 3)
+    one[:, 0] = 11.0 + 0.005 * torch.rand(64, generator=g)
+    empty = torch.zeros(64, 3)
+    empty[:, 0] = 12.5
+    blocks += [one, empty, blocks[0].clone()]
+    src = torch.cat(blocks).contiguous()
+    qmask = torch.ones(src.shape[0])
+    qmask[-64:] = 0.0
+    qmask[5] = 0.0
+    return src, qmask, packed, sorted_x
+
+
+def test_icp_kernel_windows_ties_and_edges(dev):
+    """K7's sums and its match-only epilogue against the plain versions on
+    _k7_case: matches (P, d², row) equal, the lowest duplicate row
+    matched, n_corr equal and the sums within the stated tolerances."""
+    src, qmask, packed, sorted_x = _k7_case()
+    block, thr = 64, 0.05
+    thr2 = float(np.float32(thr) * np.float32(thr))
+    T = torch.eye(4)
+    args = (src, qmask, packed, sorted_x, T, thr)
+    pl = icp_stats.icp_matches_plain(*args, block)
+    before = (icp_stats.icp_matches.launches,
+              icp_stats.icp_p2plane_stats.launches)
+    on = tuple(x.to(dev) for x in args[:4]) + (T, thr)
+    kn = icp_stats.icp_matches(*on, block)
+    ks = icp_stats.icp_p2plane_stats(*on, thr2, block)
+    torch.cuda.synchronize()
+    assert (icp_stats.icp_matches.launches,
+            icp_stats.icp_p2plane_stats.launches) == tuple(
+                b + 1 for b in before)
+    for k, p in zip(kn, pl):
+        assert torch.equal(k.cpu(), p)
+    P, d2, row = pl
+    # Windows: blocks 0-5 span over two tiles; block 7 has one row, block 8
+    # none; the last block is invalid.
+    lo, ln = icp_stats.query_windows(sorted_x, P, qmask > 0.5, thr, block)
+    assert int(ln[:6].min()) > 1024 and int(ln[7]) == 1 and int(ln[8]) == 0
+    assert int(ln[-1]) == 0
+    assert bool((row[8 * block:9 * block] == -1).all())
+    assert bool((d2[8 * block:9 * block] == 1e30).all())
+    # Exact duplicates: the first row of equal coordinates is matched.
+    tie = slice(6 * block, 7 * block)
+    first = {}
+    for i, p in enumerate(packed[:3].T.tolist()):
+        first.setdefault(tuple(p), i)
+    assert [first[tuple(p)] for p in src[tie].tolist()] == row[tie].tolist()
+    assert len({tuple(p) for p in src[tie][:48].tolist()}) == 6
+    assert bool((d2[tie] == 0).all())
+    ps = icp_stats.icp_p2plane_stats_plain(*args, thr2, block)
+    ks = ks.cpu()
+    assert float(ks[42]) == float(ps[42]) > 300
+    torch.testing.assert_close(ks[:36], ps[:36], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ks[36:42], ps[36:42], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(ks[43], ps[43], rtol=1e-5, atol=0)
+    # Repeated calls reuse the block counter: the same sums, bit for bit.
+    again = icp_stats.icp_p2plane_stats(*on, thr2, block)
+    assert torch.equal(again.cpu(), ks)
+
+
+def test_icp_kernel_rejects_bad_launch(dev):
+    src, qmask, packed, sorted_x = (x.to(dev) for x in _k7_case())
+    with pytest.raises(ValueError):  # 1,024 threads
+        icp_stats.icp_matches(src, qmask, packed, sorted_x, torch.eye(4),
+                              0.05, 128)
+    with pytest.raises(ValueError):  # 320 threads
+        icp_stats.icp_matches(src, qmask, packed, sorted_x, torch.eye(4),
+                              0.05, 40)
+
+
+@pytest.mark.parametrize("normals", [True, False])
+def test_point_to_point_icp_on_card(dev, normals):
+    """Point-to-point ICP (asked for, or a target without normals) on the
+    card, slab backend through K7's match-only epilogue: the CPU run's
+    pose within 1e-5 and its inlier count."""
+    src, tgt, R, t = make_pair(4096, voxel=0.005)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=0.005)
+    reg = tpu3d_torch.registration
+    sd = reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(src, device="cpu"), cfg)
+    td = reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(tgt, device="cpu"), cfg)
+    td, _ = reg.prepare_features(td, cfg)
+    assert td.capacity >= icp.SLAB_MIN_TARGET
+    if not normals:
+        td = td._replace(normals=None)
+    a = 0.01
+    T0 = torch.eye(4)
+    T0[:3, :3] = torch.from_numpy(R) @ torch.tensor(
+        [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]],
+        dtype=torch.float32)
+    T0[:3, 3] = torch.from_numpy(t) + torch.tensor([0.003, -0.002, 0.001])
+    kw = dict(max_iterations=40, point_to_plane=not normals)
+    cpu = icp.icp_refine(sd, td, T0, 0.002, **kw)
+
+    def on(c):
+        return tpu3d_torch.PointCloud(
+            points=c.points.to(dev), mask=c.mask.to(dev),
+            normals=None if c.normals is None else c.normals.to(dev))
+
+    before = icp_stats.icp_matches.launches
+    card = icp.icp_refine(on(sd), on(td), T0.to(dev), 0.002, **kw)
+    torch.cuda.synchronize()
+    assert icp_stats.icp_matches.launches > before
+    torch.testing.assert_close(card.transformation.cpu(), cpu.transformation,
+                               rtol=0, atol=1e-5)
+    n = int(sd.mask.sum())
+    assert round(float(card.fitness) * n) == round(float(cpu.fitness) * n)
+    assert float(cpu.fitness) > 0.9
 
 
 def test_register_pair_on_card(dev):
@@ -320,11 +460,17 @@ def _surface_cloud(n, cap, seed=0):
         device="cpu")
 
 
-@pytest.mark.parametrize("block", [128, 256])
-def test_prepare_sweeps_match_plain(dev, block):
+@pytest.mark.parametrize("block,n,lanes", [(128, 20000, True),
+                                           (256, 20000, True),
+                                           (128, 8000, True),
+                                           (128, 80000, False)])
+def test_prepare_sweeps_match_plain(dev, block, n, lanes):
     """K2, K3 and K4 on the card against their plain versions on the same
-    operands (each sweep fed the plain chain's inputs)."""
-    cloud = _surface_cloud(20000, 20480)
+    operands (each sweep fed the plain chain's inputs); K4 by its kernel
+    for layouts of more than LANE_BLOCKS_PER_SM blocks per SM (~750
+    blocks) and by its kernel with the bins across the lanes (287, 208
+    and 194 blocks)."""
+    cloud = _surface_cloud(n, n + 480)
     r = 0.012
     r2 = float(np.float32(r) * np.float32(r))
     al, lo, ln = fused_features.aligned_layout(cloud, r, block)
@@ -349,13 +495,51 @@ def test_prepare_sweeps_match_plain(dev, block):
     assert float(same.float().mean()) >= 0.999
 
     pc = fused_features.fpfh_operands(al, pbk)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (lo.shape[0] <= features.LANE_BLOCKS_PER_SM * sms) == lanes
     pcs = features.fpfh_sweep(q8, pc, lo, ln, r2, block)
     kcs = features.fpfh_sweep(on[0], pc.to(dev), on[2], on[3], r2,
                               block).cpu()
     torch.testing.assert_close(kcs, pcs, rtol=1e-4, atol=1e-6)
+    # On the card's own plain arithmetic, K4 is the same bit for bit.
+    card = features.fpfh_sweep_plain(on[0], pc.to(dev), on[2], on[3], r2,
+                                     block).cpu()
+    assert torch.equal(kcs, card) and float(kcs.abs().max()) > 0
     torch.cuda.synchronize()
     assert (features.moments_sweep.launches, features.spfh_sweep.launches,
             features.fpfh_sweep.launches) == tuple(c + 1 for c in counts)
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_fpfh_kernel_block_list(dev, block):
+    """K4 over a block list, as the sparse prepare launches it: bit for bit
+    the plain version's on the card, with a listed block whose windows are
+    all empty and the unlisted rows zero."""
+    cloud = _surface_cloud(20000, 20480, seed=2)
+    r = 0.012
+    r2 = float(np.float32(r) * np.float32(r))
+    al, lo, ln = fused_features.aligned_layout(cloud, r, block)
+    lens = fused_features.member_lengths(lo, ln, block, 4096 // block)
+    len_c = lens[2].clone()
+    ids = fused_features.query_blocks(lo.shape[0], 4096 // block)
+    len_c[int(ids[0])] = 0  # a listed block with no window
+    q8 = fused_features.moments_operands(al)
+    g = torch.Generator().manual_seed(block)
+    spfh = torch.zeros((40, q8.shape[1]))
+    spfh[:33] = torch.rand(33, q8.shape[1], generator=g) * 0.1
+    pc = fused_features.fpfh_operands(al, spfh)
+    blocks = torch.from_numpy(ids.astype(np.int32))
+    on = [x.to(dev) for x in (q8, pc, lo, len_c)]
+    pl = features.fpfh_sweep_plain(*on, r2, block,
+                                   blocks=blocks.to(dev)).cpu()
+    before = features.fpfh_sweep.launches
+    kn = features.fpfh_sweep(*on, r2, block, blocks=blocks.to(dev)).cpu()
+    torch.cuda.synchronize()
+    assert features.fpfh_sweep.launches == before + 1
+    assert torch.equal(kn, pl)
+    first = int(ids[0]) * block
+    assert not kn[first:first + block].any()
+    assert float(kn.abs().sum()) > 0
 
 
 def test_prepare_sweeps_reject_bad_block(dev):
@@ -544,3 +728,26 @@ def test_probe_kernels_match_pytorch(dev):
                        probe.row_argmin_plain(x))
     big = torch.rand(300, 300, generator=g)
     assert torch.equal(probe.transpose(big.to(dev)).cpu(), big.T)
+
+
+def test_voxel_downsample_is_deterministic(dev):
+    """The voxel centroids on the card, five runs over a masked 1M-point
+    cloud with colors (most rows padding): equal to each other and to the
+    CPU's bit for bit, so that every registration from them repeats."""
+    from tpu3d_torch.ops import voxel
+
+    g = torch.Generator().manual_seed(11)
+    n = 1 << 20
+    pts = torch.rand(n, 3, generator=g) * torch.tensor([0.4, 0.3, 0.05])
+    mask = torch.rand(n, generator=g) < 0.15
+    cols = torch.rand(n, 3, generator=g)
+    cpu = voxel.voxel_downsample(
+        tpu3d_torch.PointCloud(points=pts, mask=mask, colors=cols), 0.002)
+    card = tpu3d_torch.PointCloud(points=pts.to(dev), mask=mask.to(dev),
+                                  colors=cols.to(dev))
+    runs = [voxel.voxel_downsample(card, 0.002) for _ in range(5)]
+    assert int(cpu.mask.sum()) > 10000
+    for out in runs:
+        assert torch.equal(out.mask.cpu(), cpu.mask)
+        assert torch.equal(out.points.cpu(), cpu.points)
+        assert torch.equal(out.colors.cpu(), cpu.colors)

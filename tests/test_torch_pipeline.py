@@ -148,6 +148,59 @@ def test_ply_ground_truth_matches_jax(bumpy, bilateral):
     np.testing.assert_allclose(tw[0][:3, 3], 0.0, atol=0.01)
 
 
+@pytest.mark.parametrize("knob", [{"two_stage": "on"},
+                                  {"use_point_to_plane": False}])
+def test_registration_knobs_match_jax(bumpy, knob):
+    """``two_stage: on`` (two-stage RANSAC scoring) and
+    ``use_point_to_plane: false`` (point-to-point ICP): every instance
+    posed, at JAX's pose."""
+    jp, jw, tp, tw, rows = _run_both(_bumpy_setup(bumpy, **knob), bumpy["K"])
+    assert tp._degraded == 0
+    assert len(tp.instance_results) == 1
+    _assert_same(jp, jw, tp, tw, rows)
+    assert tp.instance_results[0]["fitness"] > 0.8
+    np.testing.assert_allclose(tw[0][:3, :3], np.eye(3), atol=0.02)
+    np.testing.assert_allclose(tw[0][:3, 3], 0.0, atol=0.01)
+
+
+def test_package_exports_match_jax():
+    """The package exports the JAX package's names: the version, the
+    pipeline config and its loader, and prepare_cloud: the downsample and
+    the normals of JAX's, and FPFH as the port's own downsample and
+    prepare_features give it (the descriptors' parity with JAX's is
+    tests/test_torch_prepare.py's)."""
+    import tpu3d
+    import tpu3d_torch
+    from bench import make_pair
+    from tpu3d.types import PointCloud as JaxCloud
+
+    assert tpu3d_torch.__version__ == tpu3d.__version__ == "0.1.0"
+    assert set(tpu3d.__all__) - set(tpu3d_torch.__all__) == {
+        "register_pair_multiscale"}
+    _configs_equal(tpu3d_torch.PipelineConfig(), tpu3d.PipelineConfig())
+    _configs_equal(tpu3d_torch.load_config("config/pipeline_config.yaml"),
+                   tpu3d.load_config("config/pipeline_config.yaml"))
+    pts, _, _, _ = make_pair(1200, seed=3, voxel=0.005)
+    c, f = tpu3d_torch.prepare_cloud(
+        tpu3d_torch.PointCloud.from_numpy(pts, device="cpu"),
+        tpu3d_torch.RegistrationConfig(voxel_size=0.005))
+    jc, jf = tpu3d.prepare_cloud(JaxCloud.from_numpy(pts),
+                                 tpu3d.RegistrationConfig(voxel_size=0.005))
+    np.testing.assert_array_equal(c.mask.numpy(), np.asarray(jc.mask))
+    np.testing.assert_allclose(c.points.numpy(), np.asarray(jc.points),
+                               atol=1e-6)
+    m = c.mask.numpy()
+    assert int(m.sum()) > 100
+    cos = np.abs((c.normals.numpy() * np.asarray(jc.normals)).sum(1))[m]
+    assert cos.min() >= 0.9999
+    reg = tpu3d_torch.registration
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=0.005)
+    _, f2 = reg.prepare_features(reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(pts, device="cpu"), cfg), cfg)
+    assert torch.equal(f.descriptors, f2.descriptors)
+    assert jf.descriptors.shape == f.descriptors.shape
+
+
 def test_batched_masks_match_jax(bumpy):
     """Three masks in one capacity bucket register as one batch, each at
     JAX's pose (a crop of the reference: the identity)."""

@@ -1,6 +1,6 @@
 """RANSAC port parity: the K6 plain version against the JAX scorers, and
 ``ransac_registration``'s routes (chunked with the rotation or the gather
-sampler, one shot) against the JAX one with the JAX draw stream
+sampler, one shot, two-stage) against the JAX one with the JAX draw stream
 replayed."""
 
 import jax
@@ -46,6 +46,11 @@ class JaxDraws:
         d = jax.random.randint(k, (h, 3), 0, jnp.int32(count))
         return torch.from_numpy(np.asarray(d).astype(np.int64))
 
+    def rows(self, n, count):
+        k = jax.random.fold_in(self.key, 1)
+        d = jax.random.randint(k, (n,), 0, jnp.int32(count))
+        return torch.from_numpy(np.asarray(d).astype(np.int64))
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))
@@ -56,6 +61,11 @@ def test_torch_draws_are_deterministic_and_in_range():
     assert d(1, 2) == d(1, 2)
     assert d(0, 0) != d(0, 1)
     assert all(0 <= u < 1 << 30 for u in d(3, 4))
+    rows = d.rows(ransac.SUB_N, 1000)
+    assert rows.shape == (ransac.SUB_N,) and torch.equal(
+        rows, d.rows(ransac.SUB_N, 1000))
+    assert 0 <= int(rows.min()) and int(rows.max()) < 1000
+    assert not torch.equal(rows[:64], d.triples(None, 64, 1000)[:, 0])
 
 
 def test_k6_plain_matches_jax_scorers(rng):
@@ -200,14 +210,6 @@ def test_corr_subsample_replays_jax(prepared_4096):
     assert float(exact.fitness) != float(got.fitness)
 
 
-def test_unported_routes_raise(prepared_4096):
-    """Only two-stage scoring is left; it names its ROADMAP item."""
-    ts, tt, tsf, ttf = _to_torch(*prepared_4096)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
-                                   max_iterations=30000, two_stage=True)
-
-
 def _assert_replays(got, ref, n_valid):
     """The same winner: the pose within 1e-5 and identical inlier counts."""
     np.testing.assert_allclose(got.transformation.numpy(),
@@ -231,6 +233,41 @@ def test_one_shot_replays_jax(prepared_4096, iters, corr_mode):
     n_valid = 2048 if corr_mode == "auto" else int(np.asarray(sd.mask).sum())
     _assert_replays(got, ref, n_valid)
     assert float(got.fitness) > 0.3
+
+
+@pytest.mark.parametrize("iters,corr_mode,confidence", [
+    (30000, "exact", 0.999), (10000, "auto", 0.999), (30000, "exact", 0.5),
+])
+def test_two_stage_replays_jax(prepared_4096, iters, corr_mode, confidence):
+    """two_stage=True: the one-shot hypotheses estimated on JAX's 16,384
+    stage-1 rows, the early-exit prefix on the estimates (a confidence
+    that some estimate exceeds, at 0.5), the top 1,024 rescored exactly:
+    JAX's winner."""
+    sd, td, sf, tf = prepared_4096
+    ts, tt, tsf, ttf = _to_torch(sd, td, sf, tf)
+    kw = dict(max_iterations=iters, corr_mode=corr_mode, corr_cap=2048,
+              confidence=confidence, two_stage=True)
+    ref = jax_ransac(sd, td, sf, tf, VOXEL, **kw)
+    got = ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
+                                     draws=JaxDraws(42), **kw)
+    n_valid = 2048 if corr_mode == "auto" else int(np.asarray(sd.mask).sum())
+    _assert_replays(got, ref, n_valid)
+    assert float(got.fitness) > 0.3
+
+
+def test_two_stage_auto_needs_32768_rows(prepared_4096, monkeypatch):
+    """'auto' takes two-stage scoring only from 2 x 16,384 rows: on 4,096
+    it is the one-shot route, and the stage-1 draw is never made."""
+    ts, tt, tsf, ttf = _to_torch(*prepared_4096)
+    draws = JaxDraws(42)
+    monkeypatch.setattr(JaxDraws, "rows", lambda *a: pytest.fail("drawn"),
+                        raising=True)
+    kw = dict(max_iterations=3000, corr_mode="exact", draws=draws)
+    auto = ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL, **kw)
+    off = ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
+                                     two_stage=False, **kw)
+    assert torch.equal(auto.transformation, off.transformation)
+    assert float(auto.fitness) == float(off.fitness) > 0.3
 
 
 def test_gather_sampler_chunks_replay_jax(prepared_4096):

@@ -21,9 +21,14 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from tpu3d_torch.config import RegistrationConfig  # noqa: E402
+from tpu3d_torch.config import (  # noqa: E402
+    PipelineConfig,
+    RegistrationConfig,
+    load_config,
+)
 from tpu3d_torch.registration import (  # noqa: E402
     bucket_capacity,
+    prepare_cloud,
     register_pair,
     register_prepared,
 )
@@ -33,12 +38,18 @@ from tpu3d_torch.types import (  # noqa: E402
     RegistrationResult,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
     "FPFHFeatures",
+    "PipelineConfig",
     "PointCloud",
     "RegistrationConfig",
     "RegistrationResult",
     "bucket_capacity",
+    "load_config",
+    "prepare_cloud",
     "register_pair",
     "register_prepared",
+    "__version__",
 ]

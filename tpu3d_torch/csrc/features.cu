@@ -3,11 +3,11 @@
 //
 // Replaces tpu3d/ops/features_pallas.py: moments_sweep_pallas
 // (_moments_kernel, K2), spfh_sweep_pallas (_spfh_kernel, K3) and
-// fpfh_sweep_pallas (_fpfh_kernel, K4). One CUDA block per query block of
-// the bucket-aligned layout (128 or 256 padded rows), one thread per query;
-// the block's three candidate windows stream through shared memory in
-// 128-row tiles and every thread consumes each tile's rows in ascending
-// order, keeping its sums in registers:
+// fpfh_sweep_pallas (_fpfh_kernel, K4). K2 and K3: one CUDA block per query
+// block of the bucket-aligned layout (128 or 256 padded rows), one thread
+// per query; the block's three candidate windows stream through shared
+// memory in 128-row tiles and every thread consumes each tile's rows in
+// ascending order, keeping its sums in registers:
 //   K2  9 centred moments + an int count over d2 <= r2 (raw coordinates),
 //       centred on the block's mean of valid queries (a fixed-order tree);
 //       then covariance, the Newton smallest eigenvector and the viewpoint
@@ -16,12 +16,14 @@
 //       phi and the diamond surrogate of theta over r2 >= d2 >= 1e-16
 //       (centroid-shifted coordinates), assembled into the 33-bin
 //       histogram by integer differences and L1-normalised -> out (40, m);
-//   K4  33 fp32 sums of SPFH_j / d over r2 >= d2 >= 1e-16 -> out (m, 36).
+//   K4  33 fp32 sums of SPFH_j / d over r2 >= d2 >= 1e-16 -> out (m, 36);
+//       its own design (a warp per query, lanes on the bins) is described
+//       above its kernel.
 //
-// What bounds it on an H100: fp32 arithmetic, not memory. Every (query,
-// candidate) pair of a block's windows costs one distance (8 operations),
-// and each neighbour within the radius 18 more (K2), about 60 (K3) or 66
-// (K4); the operands are a few MB and each tile is read from shared
+// What bounds K2 and K3 on an H100: fp32 arithmetic, not memory. Every
+// (query, candidate) pair of a block's windows costs one distance (8
+// operations), and each neighbour within the radius 18 more (K2) or about
+// 60 (K3); the operands are a few MB and each tile is read from shared
 // memory as broadcasts. The design keeps every per-pair quantity in
 // registers (the TPU ran the bilinear angle terms and the weighted SPFH
 // sum as MXU matmuls; here they are per-pair dot products) and evaluates
@@ -315,14 +317,228 @@ spfh_kernel(const float* __restrict__ q8n, const float* __restrict__ packed,
 }
 
 // ---- K4 ------------------------------------------------------------------
+//
+// What bounds it: the bin updates, 33 products and sums for each neighbour
+// in the radius, beside the distance test of every (query, candidate) pair:
+// 72.4 M of the 558.8 M pairs at the dense 1M shape, 115 k of 3.9 M at the
+// sparse 100k one. Two kernels, chosen by the launch plan (fpfh_plan in
+// ops/features.py), both timed by chip_smoke.py on every dense layout it
+// runs, on an NVIDIA H100 80GB HBM3 at 700 W:
+//   - a dense layout of more than five blocks per SM keeps the earlier
+//     design, one thread per query with its 33 sums in registers, now with
+//     the tiles double-buffered by cp.async. Spreading the bins across the
+//     lanes measured 1.2x slower at 911 blocks, 1.5x at 1,151 and 1.8x at
+//     the dense 1M shape (8,700): with 13 % of the pairs in the radius, a
+//     warp step of 32 queries already feeds several neighbours to each of
+//     its 33-sum updates, and the lane design pays a shuffle, two shared
+//     loads and loop control for every neighbour on top of them;
+//   - a block list (the sparse prepare: 32 query blocks whose windows run
+//     long), or a layout of at most five blocks per SM (the 64-instance
+//     batch's: 191 and 255 blocks, where it measured twice as fast), takes
+//     fpfh_lanes_kernel, with the bins spread across the lanes. The
+//     earlier design launched every block of the sparse layout, 24-32 of
+//     them with windows, one thread a query: 24-32 of 132 SMs busy. Now:
+//   - a warp takes one query at a time: its lanes compute the distances to
+//     32 window rows, a ballot marks the rows in the radius, and those
+//     lanes queue (row, d2) in shared memory in ascending row order; once
+//     32 neighbours are queued (and at the end of each tile) the lanes take
+//     one each for w = 1/d, and then for each queued neighbour in order
+//     lane k adds w·SPFH_k[row] to the query's bin k (lane 0 also bin 32):
+//     the reciprocal square root runs once per 32 neighbours, every lane
+//     does useful work in the bin updates, and each sum keeps the plain
+//     version's order;
+//   - the query's 33 sums stay in registers for a tile and in shared
+//     memory between tiles; the 36-plane tiles (plane stride 129, so lane
+//     k reads plane 3 + k without bank conflicts) are double-buffered with
+//     cp.async;
+//   - each block gets a CTA per 32-query slice, 8 warps each, every slice
+//     walking the block's windows (from L2), so the sparse prepare's 32
+//     blocks become 256 CTAs of 8 warps.
+
+constexpr int kFpfhTile = 128;
+constexpr int kFpfhStride = kFpfhTile + 1;
+constexpr int kFpfhPlanes = 36;
+constexpr int kFpfhMaxThreads = 256;
+
+// Tile t of a block's three windows cut into kRows-row tiles: its first
+// row and its row count.
+template <int kRows>
+__device__ __forceinline__ void fpfh_tile_at(int t, const int* ntile,
+                                             const int* wlo, const int* whi,
+                                             int& start, int& nt) {
+  int k = 0;
+  if (t >= ntile[0]) {
+    t -= ntile[0];
+    k = 1;
+    if (t >= ntile[1]) {
+      t -= ntile[1];
+      k = 2;
+    }
+  }
+  start = wlo[k] + t * kRows;
+  nt = min(kRows, whi[k] - start);
+}
+
+// Queued neighbours a warp holds for its current query: (tile column, d2)
+// pairs appended in ascending row order, turned into 32-wide bin updates
+// once 32 have gathered (and at the end of each tile).
+constexpr int kFpfhQueue = 64;
+
+// The bin updates of the first `cnt` queued neighbours, in order: lanes
+// compute w = 1/sqrt(d2) for one neighbour each (one reciprocal square root
+// per 32 neighbours), then for each neighbour lane k adds w·SPFH_k (lane 0
+// also bin 32).
+__device__ __forceinline__ void fpfh_flush(int2* __restrict__ queue, int cnt,
+                                           const float* __restrict__ buf,
+                                           int lane, float& a, float& a32) {
+  if (lane < cnt) {
+    const float d2 = __int_as_float(queue[lane].y);
+    // Each step rounded once: the reciprocal rounds as the plain version's
+    // division of 1 does.
+    queue[lane].y = __float_as_int(__frcp_rn(__fsqrt_rn(fmaxf(d2, 1e-24f))));
+  }
+  __syncwarp();
+  const float* sp = buf + (3 + lane) * kFpfhStride;
+  const float* s32 = buf + 35 * kFpfhStride;
+#pragma unroll 4
+  for (int i = 0; i < cnt; ++i) {
+    const int2 e = queue[i];
+    const float w = __int_as_float(e.y);
+    a = add_rn(a, mul_rn(w, sp[e.x]));
+    if (lane == 0) a32 = add_rn(a32, mul_rn(w, s32[e.x]));
+  }
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(kFpfhMaxThreads)
+fpfh_lanes_kernel(const float* __restrict__ q8,
+                  const float* __restrict__ packed, const int* __restrict__ lo,
+                  const int* __restrict__ len, const int* __restrict__ blocks,
+                  int m, int block, int slices, float r2,
+                  float* __restrict__ out) {
+  extern __shared__ float smem[];
+  float* tiles = smem;  // [2][36][kFpfhStride]
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int sq = block / slices;
+  float* acc = smem + 2 * kFpfhPlanes * kFpfhStride;  // [sq][33]
+  float* qs = acc + sq * 33;  // [3][sq] query coordinates
+  int2* queue = reinterpret_cast<int2*>(qs + 3 * sq) + warp * kFpfhQueue;
+  const int qpw = sq / (nthr >> 5);
+  const int bi = blockIdx.x / slices;
+  const int b = blocks != nullptr ? blocks[bi] : bi;
+  const int q0 = b * block + (blockIdx.x - bi * slices) * sq;
+  const size_t ms = static_cast<size_t>(m);
+  const unsigned below = (1u << lane) - 1u;
+
+  for (int i = tid; i < sq * 33; i += nthr) acc[i] = 0.0f;
+  for (int i = tid; i < 3 * sq; i += nthr) {
+    const int r = i / sq;
+    qs[i] = q8[r * ms + q0 + (i - r * sq)];
+  }
+  int wlo[3], whi[3], ntile[3];
+  int total = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    wlo[k] = lo[b * 3 + k];
+    whi[k] = wlo[k] + len[b * 3 + k];
+    ntile[k] = (len[b * 3 + k] + kFpfhTile - 1) / kFpfhTile;
+    total += ntile[k];
+  }
+  auto stage = [&](int t) {
+    int start, nt;
+    fpfh_tile_at<kFpfhTile>(t, ntile, wlo, whi, start, nt);
+    float* buf = tiles + (t & 1) * kFpfhPlanes * kFpfhStride;
+    for (int i = tid; i < kFpfhPlanes * kFpfhTile; i += nthr) {
+      const int r = i / kFpfhTile;
+      const int c = i - r * kFpfhTile;
+      if (c < nt)
+        tpu3d::cp_async4(buf + r * kFpfhStride + c,
+                         packed + r * ms + start + c);
+    }
+    tpu3d::cp_async_commit();
+  };
+  if (total > 0) stage(0);
+#pragma unroll 1
+  for (int t = 0; t < total; ++t) {
+    if (t + 1 < total) {
+      stage(t + 1);
+      tpu3d::cp_async_wait<1>();
+    } else {
+      tpu3d::cp_async_wait<0>();
+    }
+    __syncthreads();
+    int start, nt;
+    fpfh_tile_at<kFpfhTile>(t, ntile, wlo, whi, start, nt);
+    (void)start;
+    const float* buf = tiles + (t & 1) * kFpfhPlanes * kFpfhStride;
+#pragma unroll 1
+    for (int qi = 0; qi < qpw; ++qi) {
+      const int ql = warp * qpw + qi;
+      const float qx = qs[ql];
+      const float qy = qs[sq + ql];
+      const float qz = qs[2 * sq + ql];
+      float a = acc[ql * 33 + lane];
+      float a32 = lane == 0 ? acc[ql * 33 + 32] : 0.0f;
+      int n = 0;  // queued neighbours, the same on every lane
+#pragma unroll 1
+      for (int c0 = 0; c0 < nt; c0 += 32) {
+        const int j = c0 + lane;
+        bool in = false;
+        float d2 = 0.0f;
+        if (j < nt) {
+          d2 = tpu3d::dist2(buf[j], buf[kFpfhStride + j],
+                            buf[2 * kFpfhStride + j], qx, qy, qz);
+          in = d2 <= r2 && d2 >= 1e-16f;
+        }
+        const unsigned mask = __ballot_sync(0xffffffffu, in);
+        if (in) queue[n + __popc(mask & below)] = make_int2(j, __float_as_int(d2));
+        n += __popc(mask);
+        if (n >= 32) {
+          __syncwarp();
+          fpfh_flush(queue, 32, buf, lane, a, a32);
+          n -= 32;
+          int2 rest = make_int2(0, 0);
+          if (lane < n) rest = queue[32 + lane];
+          __syncwarp();
+          if (lane < n) queue[lane] = rest;
+        }
+      }
+      if (n > 0) {
+        __syncwarp();
+        fpfh_flush(queue, n, buf, lane, a, a32);
+      }
+      acc[ql * 33 + lane] = a;
+      if (lane == 0) acc[ql * 33 + 32] = a32;
+    }
+    __syncthreads();  // the buffer is free for tile t + 2
+  }
+  __syncthreads();
+  for (int i = tid; i < sq * 36; i += nthr) {
+    const int ql = i / 36;
+    const int c = i - ql * 36;
+    out[static_cast<size_t>(q0 + ql) * 36 + c] =
+        c < 33 ? acc[ql * 33 + c] : 0.0f;
+  }
+}
+
+// The dense layout's K4: one thread per query and its 33 sums in
+// registers, as the earlier design, the tiles now double-buffered with
+// cp.async in 64-row halves (the same shared memory as one 128-row tile, so
+// the same number of blocks stays resident on an SM).
+constexpr int kDenseTile = 64;
 
 __global__ void __launch_bounds__(kMaxBlock)
 fpfh_kernel(const float* __restrict__ q8, const float* __restrict__ packed,
             const int* __restrict__ lo, const int* __restrict__ len, int m,
             float r2, float* __restrict__ out) {
-  __shared__ float tile[36][kTile];
+  __shared__ float tile[2][kFpfhPlanes][kDenseTile];
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
   const int b = blockIdx.x;
-  const int row = b * blockDim.x + threadIdx.x;
+  const int row = b * nthr + tid;
   const size_t ms = static_cast<size_t>(m);
   const float qx = q8[row];
   const float qy = q8[ms + row];
@@ -331,16 +547,53 @@ fpfh_kernel(const float* __restrict__ q8, const float* __restrict__ packed,
   float acc[33];
 #pragma unroll
   for (int k = 0; k < 33; ++k) acc[k] = 0.0f;
-  tpu3d::window_walk<kWindows, 36, kTile>(packed, m, lo, len, b, tile, [&](int j) {
-    const float d2 =
-        tpu3d::dist2(tile[0][j], tile[1][j], tile[2][j], qx, qy, qz);
-    if (d2 <= r2 && d2 >= 1e-16f) {
-      const float w = div_rn(1.0f, __fsqrt_rn(fmaxf(d2, 1e-24f)));
+  int wlo[3], whi[3], ntile[3];
+  int total = 0;
 #pragma unroll
-      for (int k = 0; k < 33; ++k)
-        acc[k] = add_rn(acc[k], mul_rn(w, tile[3 + k][j]));
+  for (int k = 0; k < 3; ++k) {
+    wlo[k] = lo[b * 3 + k];
+    whi[k] = wlo[k] + len[b * 3 + k];
+    ntile[k] = (len[b * 3 + k] + kDenseTile - 1) / kDenseTile;
+    total += ntile[k];
+  }
+  auto stage = [&](int t) {
+    int start, nt;
+    fpfh_tile_at<kDenseTile>(t, ntile, wlo, whi, start, nt);
+    for (int i = tid; i < kFpfhPlanes * kDenseTile; i += nthr) {
+      const int r = i / kDenseTile;
+      const int c = i - r * kDenseTile;
+      if (c < nt)
+        tpu3d::cp_async4(&tile[t & 1][r][c], packed + r * ms + start + c);
     }
-  });
+    tpu3d::cp_async_commit();
+  };
+  if (total > 0) stage(0);
+#pragma unroll 1
+  for (int t = 0; t < total; ++t) {
+    if (t + 1 < total) {
+      stage(t + 1);
+      tpu3d::cp_async_wait<1>();
+    } else {
+      tpu3d::cp_async_wait<0>();
+    }
+    __syncthreads();
+    int start, nt;
+    fpfh_tile_at<kDenseTile>(t, ntile, wlo, whi, start, nt);
+    (void)start;
+    const float(*buf)[kDenseTile] = tile[t & 1];
+#pragma unroll 1
+    for (int j = 0; j < nt; ++j) {
+      const float d2 = tpu3d::dist2(buf[0][j], buf[1][j], buf[2][j], qx, qy,
+                                    qz);
+      if (d2 <= r2 && d2 >= 1e-16f) {
+        const float w = div_rn(1.0f, __fsqrt_rn(fmaxf(d2, 1e-24f)));
+#pragma unroll
+        for (int k = 0; k < 33; ++k)
+          acc[k] = add_rn(acc[k], mul_rn(w, buf[3 + k][j]));
+      }
+    }
+    __syncthreads();  // the buffer is free for tile t + 2
+  }
   float* o = out + static_cast<size_t>(row) * 36;
 #pragma unroll
   for (int k = 0; k < 33; ++k) o[k] = acc[k];
@@ -385,13 +638,38 @@ extern "C" int tpu3d_spfh_sweep(const void* q8n, const void* packed,
 }
 
 extern "C" int tpu3d_fpfh_sweep(const void* q8, const void* packed,
-                                const void* lo, const void* len, int m, int nb,
-                                int block, float r2, void* out, void* stream) {
+                                const void* lo, const void* len,
+                                const void* blocks, int m, int nblocks,
+                                int block, int slices, int warps, float r2,
+                                void* out, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
   if (bad_block(block)) return static_cast<int>(cudaErrorInvalidValue);
-  if (nb > 0) {
-    fpfh_kernel<<<nb, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (slices == 1) {  // every block, a thread a query
+    if (blocks != nullptr || warps * 32 != block)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (nblocks > 0) {
+      fpfh_kernel<<<nblocks, block, 0, st>>>(
+          static_cast<const float*>(q8), static_cast<const float*>(packed),
+          static_cast<const int*>(lo), static_cast<const int*>(len), m, r2,
+          static_cast<float*>(out));
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (slices < 1 || block % slices != 0 || warps < 1 ||
+      warps * 32 > kFpfhMaxThreads || (block / slices) % warps != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = static_cast<int>(
+      sizeof(float) * (2 * kFpfhPlanes * kFpfhStride + (block / slices) * 36) +
+      sizeof(int2) * kFpfhQueue * warps);
+  cudaError_t err = cudaFuncSetAttribute(
+      fpfh_lanes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (nblocks > 0) {
+    fpfh_lanes_kernel<<<nblocks * slices, warps * 32, smem, st>>>(
         static_cast<const float*>(q8), static_cast<const float*>(packed),
-        static_cast<const int*>(lo), static_cast<const int*>(len), m, r2,
+        static_cast<const int*>(lo), static_cast<const int*>(len),
+        static_cast<const int*>(blocks), m, block, slices, r2,
         static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());

@@ -65,6 +65,23 @@ __device__ __forceinline__ void window_walk(const float* __restrict__ packed,
   }
 }
 
+// cp.async of one float from device memory into shared memory (any
+// 4-byte aligned addresses, so a tile may start at any window row), and
+// the group commit and wait that overlap a tile's copy with the scan of the
+// previous one.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Sum of v over the block's threads by halving (blockDim.x a power of two),
 // the order of the plain versions' _tree_sum. Every thread gets the sum.
 __device__ __forceinline__ float block_tree_sum(float v, float* red) {

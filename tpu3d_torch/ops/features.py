@@ -17,7 +17,9 @@ window costs nothing, which is how the sparse prepare prunes.
      the diamond-angle surrogate), 30 cumulative threshold counts, then the
      L1-normalised 33-bin SPFH → f32[40, Mp]: rows 0-32 SPFH, 33 count.
   K4 ``fpfh_sweep``: Σ over candidates with r² ≥ d² ≥ 1e-16 (raw
-     coordinates) of SPFH_j / d → f32[Mp, 36], columns 0-32 used.
+     coordinates) of SPFH_j / d → f32[Mp, 36], columns 0-32 used; with a
+     block list (the sparse prepare's query blocks) it runs on those blocks
+     only.
 
 The kernels live in ``csrc/features.cu`` (walk in ``csrc/window_walk.cuh``).
 Each plain version gathers a group of blocks' windows into padded (R, G, L)
@@ -279,10 +281,14 @@ spfh_sweep.launches = 0
 # --------------------------------------------------------------------------
 
 
-def fpfh_sweep_plain(q8, packed36, lo, ln, r2, block):
+def fpfh_sweep_plain(q8, packed36, lo, ln, r2, block, blocks=None):
     """Plain PyTorch version of K4 (see the module docstring)."""
     mp = q8.shape[1]
     nbk = mp // block
+    if blocks is not None:
+        listed = torch.zeros(nbk, dtype=torch.bool, device=ln.device)
+        listed[blocks.long()] = True
+        ln = torch.where(listed[:, None], ln, 0)
     q = q8[:3].reshape(3, nbk, block)
     acc_all = torch.zeros((33, nbk, block), dtype=torch.float32,
                           device=q8.device)
@@ -304,20 +310,64 @@ def fpfh_sweep_plain(q8, packed36, lo, ln, r2, block):
     return out
 
 
-def fpfh_sweep(q8, packed36, lo, ln, r2, block, sub=None):
+# Dense layouts of up to this many blocks per SM take K4's lane kernel.
+# Lane / thread-per-query device time on an H100 (132 SMs) at the dense
+# layouts chip_smoke.py runs: 0.44 at 191 blocks, 0.51 at 255, 1.16 at
+# 911, 1.48 at 1,151 and 1.76 at 8,700; the ratio, log-linear in the
+# block count between 255 and 911, reaches 1 at ~720 blocks, 5.5 an SM.
+LANE_BLOCKS_PER_SM = 5
+
+
+def fpfh_plan(block: int, nblocks: int, listed: bool,
+              sms: int) -> tuple[int, int]:
+    """(slices, warps) of K4's launch: CTAs per query block and warps per
+    CTA. A block list (the sparse prepare's few query blocks), or a layout
+    of at most LANE_BLOCKS_PER_SM blocks per SM (``sms`` of them), runs the
+    kernel with the bins across the lanes, each block split into slices of
+    32 queries on 8 warps, so that its blocks fill the card; a larger
+    layout runs one CTA per block, a thread per query (the kernel with the
+    sums in registers), which measured faster there."""
+    if listed or nblocks <= LANE_BLOCKS_PER_SM * sms:
+        return block // 32, 8
+    return 1, block // 32
+
+
+def fpfh_sweep(q8, packed36, lo, ln, r2, block, sub=None, blocks=None):
     """K4: f32[Mp, 36] — columns 0-32 the 1/d-weighted sum of the
     neighbours' SPFH (the own SPFH is added outside).
 
     q8 f32[8, Mp] (rows 0-2 raw xyz), packed36 f32[36, Mp] (raw xyz, 33
-    SPFH planes), lo/ln i32[Mp/block, 3]. CUDA tensors launch the kernel;
-    CPU tensors take the plain version."""
+    SPFH planes), lo/ln i32[Mp/block, 3]. ``blocks`` (i32[K]) lists the
+    only blocks whose windows may be non-empty, as the sparse prepare's
+    query blocks are: the kernel runs on them alone and every other row is
+    zero. CUDA tensors launch the kernel; CPU tensors take the plain
+    version."""
     del sub
     _check("fpfh_sweep", q8, packed36, lo, ln, block, 36)
     if not launches_kernel(q8, packed36, lo, ln):
-        return fpfh_sweep_plain(q8, packed36, lo, ln, r2, block)
-    out = torch.empty((q8.shape[1], 36), dtype=torch.float32,
-                      device=q8.device)
-    _launch("tpu3d_fpfh_sweep", q8, packed36, lo, ln, r2, block, out)
+        return fpfh_sweep_plain(q8, packed36, lo, ln, r2, block, blocks)
+    mp = q8.shape[1]
+    if blocks is None:
+        out = torch.empty((mp, 36), dtype=torch.float32, device=q8.device)
+        nblocks = mp // block
+    else:
+        blocks = blocks.to(q8.device, torch.int32).contiguous()
+        out = torch.zeros((mp, 36), dtype=torch.float32, device=q8.device)
+        nblocks = blocks.shape[0]
+    slices, warps = fpfh_plan(
+        block, nblocks, blocks is not None,
+        torch.cuda.get_device_properties(q8.device).multi_processor_count)
+    fins = [x.contiguous() for x in (q8, packed36)]
+    if any(x.dtype != torch.float32 for x in fins):
+        raise TypeError("tpu3d_fpfh_sweep takes float32 planes")
+    ints = [x.to(torch.int32).contiguous() for x in (lo, ln)]
+    rc = build.library().tpu3d_fpfh_sweep(
+        *(x.data_ptr() for x in fins), *(x.data_ptr() for x in ints),
+        0 if blocks is None else blocks.data_ptr(), mp, nblocks, block,
+        slices, warps, float(r2), out.data_ptr(),
+        torch.cuda.current_stream(q8.device).cuda_stream,
+    )
+    build.check(rc, "tpu3d_fpfh_sweep")
     build.count_launch(fpfh_sweep)
     return out
 

@@ -14,8 +14,9 @@ order. Sparse mode computes descriptors only for ``nq`` query blocks in
 evenly strided contiguous runs: sweep C runs on those blocks, sweep B on
 them and the blocks their windows reach, sweep A on that set and the
 blocks its windows reach; every other block's window lengths are zeroed,
-which the window walk skips. Each retained descriptor equals the dense
-value at the same ``block``.
+which the window walk skips, and sweep C launches on the query blocks
+alone. Each retained descriptor equals the dense value at the same
+``block``.
 
 The neighbourhoods are radius-exact (every point within r), where the
 reference caps them at 100 (registration.cpp:87); the gather route
@@ -68,15 +69,22 @@ def sparse_runs(nbk: int, nq: int) -> tuple[int, int, int, int]:
     return q_run, nruns, run_stride, start0
 
 
+def query_blocks(nbk: int, nq: int) -> np.ndarray:
+    """The sparse prepare's query-block ids (numpy, ascending): the runs of
+    :func:`sparse_runs`."""
+    q_run, nruns, run_stride, start0 = sparse_runs(nbk, nq)
+    return (start0 + np.arange(nruns)[:, None] * run_stride
+            + np.arange(q_run)[None]).ravel()
+
+
 def member_lengths(lo, length, block: int, nq: int):
     """Sparse member sets → the window lengths of sweeps A, B and C, and the
-    query-block ids (numpy). Coverage of each live window's block range is a
-    difference array (+1 at its first block, −1 after its last)."""
+    query runs. Coverage of each live window's block range is a difference
+    array (+1 at its first block, −1 after its last)."""
     nbk = lo.shape[0]
     dev = lo.device
     q_run, nruns, run_stride, start0 = sparse_runs(nbk, nq)
-    take_ids = (start0 + np.arange(nruns)[:, None] * run_stride
-                + np.arange(q_run)[None]).ravel()
+    take_ids = query_blocks(nbk, nq)
     qmask_np = np.zeros((nbk,), bool)
     qmask_np[take_ids] = True
     qmask = torch.from_numpy(qmask_np).to(dev)
@@ -163,8 +171,12 @@ def _pallas_prepare(cloud: PointCloud, r: float, r2: float, block: int,
     pts_t = al.padded_points_t
     if nq is None:
         len_a = len_b = len_c = length
+        blocks = None
     else:
         len_a, len_b, len_c, runs = member_lengths(lo, length, block, nq)
+        # Sweep C runs on the query blocks alone.
+        blocks = torch.from_numpy(
+            query_blocks(lo.shape[0], nq).astype(np.int32)).to(lo.device)
 
     q8 = moments_operands(al)
     # Sparse mode: rows outside the A-set get a zero-covariance
@@ -175,7 +187,7 @@ def _pallas_prepare(cloud: PointCloud, r: float, r2: float, block: int,
     spfh40 = spfh_sweep(q8n, packed_b, lo, len_b, r2, block)
     spfh_planes = spfh40[:33]
     wsum = fpfh_sweep(q8, fpfh_operands(al, spfh40), lo, len_c, r2,
-                      block)[:, :33]
+                      block, blocks=blocks)[:, :33]
 
     if nq is not None:
         q_run, nruns, run_stride, start0 = runs

@@ -1,19 +1,26 @@
-"""ICP fine registration, point-to-plane.
+"""ICP fine registration, point-to-plane and point-to-point.
 
 Counterpart of ``tpu3d/ops/icp.py`` (``build_icp_target``, ``_solve_spd6``,
-``icp_loop``, ``gathered_stats_fn``, ``fused_slab_stats_fn``,
-``icp_refine``). Per iteration a stats pass reduces the correspondence
-problem to the 6×6 normal equations, n_corr and Σd²:
+``icp_loop``, ``_p2p_stats``, ``gathered_stats_fn``,
+``fused_slab_stats_fn``, ``icp_refine``). Per iteration a stats pass
+reduces the correspondence problem to a few sums: the 6×6 normal
+equations (point-to-plane) or the Kabsch cross-covariance and weighted
+means (point-to-point), with n_corr and Σd²:
 
   * slab backend (targets ≥ 4,096 points, :class:`SlabStats`, the
-    counterpart of ``fused_slab_stats_fn``): K7, one fused kernel over the
-    x-sorted target's per-block windows (:mod:`tpu3d_torch.ops.icp_stats`);
+    counterpart of ``fused_slab_stats_fn``): K7, one launch over the
+    x-sorted target's per-block windows (:mod:`tpu3d_torch.ops.icp_stats`),
+    which returns the point-to-plane sums or, for point-to-point, the
+    per-query matches that :func:`p2p_stats` reduces;
   * brute backend (smaller targets): K5 top-1 matches, then masked sums.
 
-The JAX ``while_loop`` becomes a Python loop. Each iteration reads the
-44 floats of the normal equations back to the host, where the 6×6 system
-is solved in fp32 by the same unrolled Cholesky; the new pose goes back to
-the device for the next pass. That is one device→host sync per iteration.
+Point-to-point runs when asked for and wherever the target has no
+normals. The JAX ``while_loop`` becomes a Python loop. Each iteration reads
+the pass's sums back to the host in one copy, where the 6×6 system is
+solved in fp32 by the same unrolled Cholesky, or the 3×3 Kabsch SVD runs in
+numpy fp32; the new pose stays on the host, and the slab backend hands it
+to the kernel as launch arguments. That is one device→host sync per
+iteration.
 """
 
 from __future__ import annotations
@@ -23,19 +30,20 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from tpu3d_torch.ops.icp_stats import icp_p2plane_stats, unpack_partials
+from tpu3d_torch.ops.icp_stats import icp_matches, icp_p2plane_stats
 from tpu3d_torch.ops.nn import nearest_neighbor
 from tpu3d_torch.ops.ransac import decimation_stride
-from tpu3d_torch.ops.slab import SlabIndex, block_slices, build_slab
+from tpu3d_torch.ops.slab import SlabIndex, build_slab
 from tpu3d_torch.ops.transforms import (
     euler_xyz_to_matrix,
+    kabsch_from_cross_cov,
     make_transform,
     transform_points,
 )
 from tpu3d_torch.types import PointCloud, RegistrationResult
 
-# Query rows per K7 block: one CUDA thread each. 64 keeps windows narrow
-# and gives 128 blocks at the 8,192-row bucket.
+# Query rows per K7 block (LANES CUDA threads each). 64 keeps windows
+# narrow and gives 128 blocks at the 8,192-row bucket.
 BLOCK = 64
 # Targets of at least this many rows take the slab backend (K7); smaller
 # ones the brute backend (K5), as the JAX package's nn_mode='auto' picks.
@@ -50,12 +58,21 @@ class IcpTargetIndex(NamedTuple):
 
 
 class IcpStats(NamedTuple):
-    """Sufficient statistics of one point-to-plane correspondence pass."""
+    """Sufficient statistics of one correspondence pass as one f32 vector,
+    read back in one copy: point-to-plane [JᵀJ (36) | Jᵀr (6) | n_corr |
+    Σd²] (44 values); point-to-point [Σw | Σw·p (3) | Σw·q (3) | H (9) |
+    n_corr | Σd²] (18), H the exact-mean-centred weighted
+    cross-covariance."""
 
-    ata: torch.Tensor  # (6, 6)
-    atb: torch.Tensor  # (6,)
-    n_corr: torch.Tensor  # scalar
-    sum_d2: torch.Tensor  # scalar
+    vec: torch.Tensor
+
+    @property
+    def n_corr(self) -> torch.Tensor:
+        return self.vec[-2]
+
+    @property
+    def sum_d2(self) -> torch.Tensor:
+        return self.vec[-1]
 
 
 def build_icp_target(target: PointCloud) -> IcpTargetIndex:
@@ -104,27 +121,32 @@ def icp_loop(
     n_valid: float,
     initial_transform: torch.Tensor,
     max_iterations: int,
+    point_to_plane: bool = True,
 ) -> RegistrationResult:
-    """Gauss-Newton driver with the reference's semantics: stop when
-    |Δrmse| < 1e-6 (after the first iteration), break before updating when
-    n_corr < 3, keep the last finite pose. Reports the post-update pose
-    with the pre-update fitness/rmse, as the reference does."""
+    """Gauss-Newton (point-to-plane) or Kabsch (point-to-point) loop with
+    the reference's semantics: stop when |Δrmse| < 1e-6 (after the first
+    iteration), break before updating when n_corr < 3, keep the last finite
+    pose. Reports the post-update pose with the pre-update fitness/rmse, as
+    the reference does. ``stats_fn`` takes the pose on the host."""
     device = initial_transform.device
     T = initial_transform.detach().to("cpu", torch.float32)
     fitness = np.float32(0.0)
     rmse = np.float32(0.0)
     n_valid = np.float32(n_valid)
     for it in range(max_iterations):
-        s = stats_fn(T.to(device))
-        host = torch.cat(
-            [s.ata.reshape(-1), s.atb, s.n_corr.reshape(1), s.sum_d2.reshape(1)]
-        ).cpu().numpy()  # the iteration's one device→host sync
-        ata, atb = host[:36].reshape(6, 6), host[36:42]
-        n_corr, sum_d2 = np.float32(host[42]), np.float32(host[43])
+        # The iteration's one device→host sync.
+        host = stats_fn(T).vec.cpu().numpy()
+        n_corr, sum_d2 = np.float32(host[-2]), np.float32(host[-1])
         if n_corr < 3.0:
             break  # before updating anything
-        x = torch.from_numpy(_solve_spd6(ata, -atb))
-        delta = make_transform(euler_xyz_to_matrix(x[:3]), x[3:])
+        if point_to_plane:
+            x = torch.from_numpy(_solve_spd6(host[:36].reshape(6, 6),
+                                             -host[36:42]))
+            delta = make_transform(euler_xyz_to_matrix(x[:3]), x[3:])
+        else:
+            R, t = kabsch_from_cross_cov(host[0], host[1:4], host[4:7],
+                                         host[7:16].reshape(3, 3))
+            delta = make_transform(torch.from_numpy(R), torch.from_numpy(t))
         new_T = delta @ T
         new_rmse = np.sqrt(sum_d2 / np.maximum(n_corr, np.float32(1.0)))
         converged = it > 0 and abs(rmse - new_rmse) < np.float32(1e-6)
@@ -141,13 +163,31 @@ def icp_loop(
     )
 
 
+def p2p_stats(P, q, keep, d2) -> IcpStats:
+    """Point-to-point statistics over full match arrays, with two-pass
+    exact weighted means as the JAX package's ``_p2p_stats`` takes them,
+    so both backends give numerically identical updates."""
+    wf = keep.to(torch.float32)
+    sw = wf.sum()
+    sws = torch.clamp_min(sw, 1e-12)
+    sp = (P * wf[:, None]).sum(0)
+    sq = (q * wf[:, None]).sum(0)
+    Pc = (P - sp / sws) * wf[:, None]
+    qc = q - sq / sws
+    H = Pc.T @ qc
+    return IcpStats(torch.cat([
+        sw[None], sp, sq, H.reshape(9), sw[None],
+        torch.where(keep, d2, 0.0).sum()[None]]))
+
+
 def gathered_stats_fn(
     src_pts: torch.Tensor,
     smask: torch.Tensor,
     target_points: torch.Tensor,
     target_mask: torch.Tensor,
-    target_normals: torch.Tensor,
+    target_normals: torch.Tensor | None,
     thr: float,
+    point_to_plane: bool = True,
 ) -> Callable[[torch.Tensor], IcpStats]:
     """Brute backend: K5 top-1 matches over all targets, then masked
     sums over the gathered matches."""
@@ -155,22 +195,21 @@ def gathered_stats_fn(
     thr2 = float(thr_f * thr_f)
 
     def stats(T: torch.Tensor) -> IcpStats:
-        P = transform_points(T, src_pts)
+        P = transform_points(T.to(src_pts.device), src_pts)
         idx, d2 = nearest_neighbor(P, target_points, target_mask)
         keep = smask & (d2 <= thr2)  # inclusive
-        wf = keep.to(torch.float32)
         idx = idx.long()
         q = target_points[idx]
+        if not point_to_plane:
+            return p2p_stats(P, q, keep, d2)
+        wf = keep.to(torch.float32)
         nrm = target_normals[idx]
         J = torch.cat([torch.linalg.cross(P, nrm, dim=1), nrm], dim=1)
         r = ((P - q) * nrm).sum(1)
         Jw = J * wf[:, None]
-        return IcpStats(
-            ata=Jw.T @ J,
-            atb=Jw.T @ r,
-            n_corr=wf.sum(),
-            sum_d2=torch.where(keep, d2, 0.0).sum(),
-        )
+        return IcpStats(torch.cat([
+            (Jw.T @ J).reshape(36), Jw.T @ r, wf.sum()[None],
+            torch.where(keep, d2, 0.0).sum()[None]]))
 
     return stats
 
@@ -180,43 +219,52 @@ class SlabStats:
 
     ``src_pts`` should be sorted by x at the initial pose so query blocks
     stay window-coherent; every reduction is permutation invariant, so
-    nothing is un-sorted."""
+    nothing is un-sorted. The kernel's operands are built once here, so a
+    call is one launch (point-to-plane), or one launch and the
+    point-to-point sums in PyTorch."""
 
     def __init__(self, index: IcpTargetIndex, src_pts: torch.Tensor,
-                 smask: torch.Tensor, thr: float, block: int = BLOCK):
-        self.slab = index.slab
+                 smask: torch.Tensor, thr: float, block: int = BLOCK,
+                 point_to_plane: bool = True):
+        slab = index.slab
         self.block = block
-        self.thr = float(np.float32(thr))
+        self.point_to_plane = point_to_plane
+        self.radius = float(np.float32(thr))
         self.thr2 = float(np.float32(thr) * np.float32(thr))
         pad = (-src_pts.shape[0]) % block
-        self.smask_p = torch.nn.functional.pad(smask, (0, pad))
-        self.src_p = torch.nn.functional.pad(src_pts, (0, 0, 0, pad))
-        self.qmask = self.smask_p.to(torch.float32)
-        valid = self.slab.valid_sorted[None, :]
+        self.src = torch.nn.functional.pad(
+            src_pts.to(torch.float32), (0, 0, 0, pad)).contiguous()
+        self.qmask = torch.nn.functional.pad(smask, (0, pad)).to(
+            torch.float32)
+        self.sorted_x = slab.sorted_x.contiguous()
+        valid = slab.valid_sorted[None, :]
         # Invalid target rows get sentinel coordinates: the kernel carries
         # no validity mask, and d² ≈ 1e9 keeps them out of every threshold
         # test.
-        self.packed = torch.cat(
-            [
-                torch.where(valid, self.slab.sorted_points_t, 3.0e4),
-                torch.where(valid, index.nrm_sorted_t, 0.0),
-            ],
-            dim=0,
-        ).contiguous()
+        planes = [torch.where(valid, slab.sorted_points_t, 3.0e4)]
+        if point_to_plane:
+            planes.append(torch.where(valid, index.nrm_sorted_t, 0.0))
+        self.packed = torch.cat(planes).contiguous()
 
     def kernel_args(self, T: torch.Tensor) -> tuple:
-        """K7's arguments at pose ``T``: transformed queries, their mask,
-        the packed target, the per-block windows, thr² and the block."""
-        P = transform_points(T, self.src_p).contiguous()
-        qx = torch.where(self.smask_p, P[:, 0], 2.9e4)
-        lo, length = block_slices(self.slab, qx.reshape(-1, self.block),
-                                  self.thr)
-        return (P, self.qmask, self.packed, lo, length, self.thr2,
-                self.block)
+        """K7's arguments at pose ``T``: source rows, their mask, the
+        packed target, its x keys, the pose, the window radius, thr² (point
+        to plane) and the block."""
+        head = (self.src, self.qmask, self.packed, self.sorted_x, T,
+                self.radius)
+        if self.point_to_plane:
+            return head + (self.thr2, self.block)
+        return head + (self.block,)
 
     def __call__(self, T: torch.Tensor) -> IcpStats:
-        parts = icp_p2plane_stats(*self.kernel_args(T))
-        return IcpStats(*unpack_partials(parts))
+        T = T.detach().to("cpu", torch.float32)
+        if self.point_to_plane:
+            return IcpStats(icp_p2plane_stats(*self.kernel_args(T)))
+        P, d2, row = icp_matches(*self.kernel_args(T))
+        keep = (self.qmask > 0.5) & (d2 <= self.thr2)
+        q = self.packed[:, row.clamp_min(0).long()].T
+        return p2p_stats(P, q, keep, d2)
+
 
 def _metrics(s: IcpStats, n_valid: float, T: torch.Tensor):
     """(T, n_corr / n_valid, rmse) from one stats pass at pose T."""
@@ -231,11 +279,13 @@ def _metrics(s: IcpStats, n_valid: float, T: torch.Tensor):
     )
 
 
-def _full_source_stats(index, src_pts, smask, T, thr) -> SlabStats:
+def _full_source_stats(index, src_pts, smask, T, thr,
+                       point_to_plane) -> SlabStats:
     """Slab stats over every source row, sorted by x at pose ``T``."""
     key = torch.where(smask, transform_points(T, src_pts)[:, 0], 3e4)
     skey, order = torch.sort(key, stable=True)
-    return SlabStats(index, src_pts[order], skey < 2.9e4, thr)
+    return SlabStats(index, src_pts[order], skey < 2.9e4, thr,
+                     point_to_plane=point_to_plane)
 
 
 def icp_refine(
@@ -253,9 +303,10 @@ def icp_refine(
     polish_iters: int = 8,
     polish_threshold: float = 0.5,
 ) -> RegistrationResult:
-    """Point-to-plane ICP from ``initial_transform``: the slab backend for
-    targets of ≥ ``SLAB_MIN_TARGET`` rows (through ``target_index`` when
-    given), brute below.
+    """ICP from ``initial_transform``: the slab backend for targets of ≥
+    ``SLAB_MIN_TARGET`` rows (through ``target_index`` when given), brute
+    below. Point-to-plane when ``point_to_plane`` and the target has
+    normals, point-to-point (Kabsch) otherwise.
 
     ``src_mode`` 'auto'/'subsample' on the slab backend with a source of
     ≥ 2·``src_cap`` rows iterates on the strided ``src_cap``-row subset
@@ -267,11 +318,7 @@ def icp_refine(
     that fitness is below ``polish_threshold`` and reports exact metrics at
     the polished pose: the JAX ``lax.cond`` becomes a host ``if`` on the
     fitness, one more device→host read."""
-    if not (point_to_plane and target.normals is not None):
-        raise NotImplementedError(
-            "point-to-point ICP is not ported yet "
-            "(ROADMAP.md queue 1, item 7: ICP)"
-        )
+    use_p2l = point_to_plane and target.normals is not None
     slab = target.capacity >= SLAB_MIN_TARGET
     src_pts = source.points.to(torch.float32)
     smask = source.mask
@@ -293,11 +340,11 @@ def icp_refine(
         x0 = transform_points(T0, src_pts)[:, 0]
         _, order = torch.sort(torch.where(smask, x0, 3e4), stable=True)
         stats = SlabStats(index, src_pts[order], smask[order],
-                          distance_threshold)
+                          distance_threshold, point_to_plane=use_p2l)
     else:
         stats = gathered_stats_fn(src_pts, smask, target.points, target.mask,
-                                  target.normals, distance_threshold)
-    res = icp_loop(stats, n_valid, T0, max_iterations)
+                                  target.normals, distance_threshold, use_p2l)
+    res = icp_loop(stats, n_valid, T0, max_iterations, use_p2l)
     if not use_sub:
         return res
 
@@ -307,14 +354,17 @@ def icp_refine(
                        res.transformation)
     elif final_metrics == "exact":
         full = _full_source_stats(index, src_full, smask_full,
-                                  res.transformation, distance_threshold)
+                                  res.transformation, distance_threshold,
+                                  use_p2l)
         res = _metrics(full(res.transformation), n_valid_full,
                        res.transformation)
     if (polish == "auto" and polish_iters > 0
             and float(res.fitness) < polish_threshold):
         full = _full_source_stats(index, src_full, smask_full,
-                                  res.transformation, distance_threshold)
-        r2 = icp_loop(full, n_valid_full, res.transformation, polish_iters)
+                                  res.transformation, distance_threshold,
+                                  use_p2l)
+        r2 = icp_loop(full, n_valid_full, res.transformation, polish_iters,
+                      use_p2l)
         res = _metrics(full(r2.transformation), n_valid_full,
                        r2.transformation)
     return res

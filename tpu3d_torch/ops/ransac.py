@@ -42,13 +42,21 @@ class Draws(Protocol):
     ``draws(chunk, epoch)`` is the rotation sampler's triple (u0, u1, u2),
     each in [0, 2**30). ``draws.triples(chunk, h, count)`` is the gather
     sampler's i64[h, 3] row draws in [0, count) (CPU), ``chunk`` None on
-    the one-shot route. A plain function serves where only the rotation
-    sampler runs."""
+    the one-shot and the two-stage routes. ``draws.rows(n, count)`` is the
+    two-stage route's stage-1 draw: i64[n] valid-row ranks in [0, count),
+    with replacement (CPU). A plain function serves where only the
+    rotation sampler runs."""
 
     def __call__(self, chunk: int, epoch: int) -> tuple[int, int, int]: ...
 
     def triples(self, chunk: int | None, h: int, count: int) -> torch.Tensor:
         ...
+
+    def rows(self, n: int, count: int) -> torch.Tensor: ...
+
+
+# Rows of the two-stage route's stage-1 estimate.
+SUB_N = 16384
 
 
 def hypothesis_chunk(max_iterations: int) -> int:
@@ -80,6 +88,11 @@ class TorchDraws:
         # Epoch −1 never occurs on the rotation side.
         g = self._generator(-1 if chunk is None else chunk, -1)
         return torch.randint(0, max(count, 1), (h, 3), generator=g)
+
+    def rows(self, n: int, count: int) -> torch.Tensor:
+        # Chunk −2 never occurs on either sampler's side.
+        g = self._generator(-2, -1)
+        return torch.randint(0, max(count, 1), (n,), generator=g)
 
 
 def torch_draws(seed: int) -> TorchDraws:
@@ -259,7 +272,9 @@ def ransac_registration(
     n ≥ 2·``est_cap`` the in-chunk estimate stage (every hypothesis scored
     on a strided ``est_cap``-row subset, the top 32 rescored exactly);
     otherwise one shot: ⌈max_iterations/512⌉·512 gather-sampled hypotheses
-    scored at once. ``two_stage`` raises.
+    scored at once. ``two_stage`` (True, or 'auto' with n ≥ 32,768 rows)
+    replaces both: the one shot's hypotheses estimated on 16,384 rows drawn
+    with replacement from the valid ones, the best 1,024 rescored exactly.
 
     ``corr_mode`` 'auto' or 'subsample' with n ≥ 2·``corr_cap``: exact
     correspondences for the strided ``corr_cap``-row subset of the source
@@ -283,15 +298,10 @@ def ransac_registration(
         )
         n = corr_cap
     h_total = -(-max_iterations // 512) * 512
+    finalists = min(1024, h_total)
     if two_stage == "auto":
-        two_stage = n >= 2 * 16384 and h_total > 4 * min(1024, h_total)
-    if two_stage:
-        raise NotImplementedError(
-            "RANSAC two-stage scoring is not ported yet (ROADMAP.md queue 1, "
-            "item 6: RANSAC; reached with corr_mode='exact' on sources of "
-            "32,768 rows or more)"
-        )
-    use_chunked = max_iterations > hyp_chunk
+        two_stage = n >= 2 * SUB_N and h_total > 4 * finalists
+    use_chunked = not two_stage and max_iterations > hyp_chunk
     use_rotation = use_chunked and hyp_chunk >= n >= 2048
 
     n_valid = max(float(src_mask.sum()), 1.0)
@@ -326,7 +336,11 @@ def ransac_registration(
             max_iterations)
         return w16t, t_norm, disabled, h
 
-    if not use_chunked:
+    if two_stage:
+        rows = perm[draws.rows(SUB_N, count).to(perm.device)]
+        bf, bw = _two_stage(sample(None, 0, h_total), feat_t, pq_norm, rows,
+                            thr2, n_valid, confidence, finalists)
+    elif not use_chunked:
         bf, bw = _one_shot(sample(None, 0, h_total), feat_t, pq_norm, thr2,
                            n_valid, confidence)
     else:
@@ -351,6 +365,31 @@ def _one_shot(sampled, feat_t, pq_norm, thr2, n_valid, confidence):
     masked = torch.where(h_ids <= cutoff, fitness, -2.0)
     best = torch.argmax(masked, dim=0, keepdim=True)  # first of equals
     return fitness[best][0], w16t[:, best][:, 0]
+
+
+def _two_stage(sampled, feat_t, pq_norm, rows, thr2, n_valid, confidence,
+               finalists):
+    """Stage 1 estimates every hypothesis on the drawn ``rows`` (fitness
+    over their number), with the early-exit prefix on the estimates;
+    stage 2 scores the best ``finalists`` exactly. (best fitness, best w16
+    column)."""
+    w16t, t_norm, disabled, _ = sampled
+    h_total = w16t.shape[1]
+    cnt1, _ = score_hypotheses(feat_t[:, rows].contiguous(), pq_norm[rows],
+                               w16t, t_norm, thr2)
+    fit1 = torch.where(disabled, -1.0, cnt1 / rows.shape[0])
+    exceed = fit1 > confidence
+    first = torch.argmax(exceed.to(torch.int8))  # first True
+    cutoff = torch.where(exceed.any(), first, h_total - 1)
+    h_ids = torch.arange(h_total, device=w16t.device)
+    fit1 = torch.where(h_ids <= cutoff, fit1, -2.0)
+    # lax.top_k order: descending, ties lowest index first.
+    top = torch.sort(fit1, descending=True, stable=True)[1][:finalists]
+    cnt2, _ = score_hypotheses(feat_t, pq_norm, w16t[:, top].contiguous(),
+                               t_norm[top], thr2)
+    fit2 = torch.where(fit1[top] <= -1.0, -1.0, cnt2 / n_valid)
+    best = torch.argmax(fit2, dim=0, keepdim=True)  # first of equals
+    return fit2[best][0], w16t[:, top[best]][:, 0]
 
 
 def _chunks(sample, hyp_chunk, n_chunks_bound, max_iterations, confidence,

@@ -47,13 +47,15 @@ def build_slab(points: torch.Tensor, mask: torch.Tensor) -> SlabIndex:
 
 
 def block_slices(slab: SlabIndex, qx_blocks: torch.Tensor, radius: float):
-    """(n_blocks,) window starts and lengths covering x in
+    """(n_blocks,) i32 window starts and lengths covering x in
     [block min − r, block max + r]; the right edge is inclusive, matching
     the inclusive d² ≤ r² gates downstream."""
     r = float(np.float32(radius))  # fp32 arithmetic on the device
-    lo = torch.searchsorted(slab.sorted_x, qx_blocks.amin(1) - r)
-    hi = torch.searchsorted(slab.sorted_x, qx_blocks.amax(1) + r, right=True)
-    return lo.to(torch.int32), (hi - lo).to(torch.int32)
+    lo = torch.searchsorted(slab.sorted_x, qx_blocks.amin(1) - r,
+                            out_int32=True)
+    hi = torch.searchsorted(slab.sorted_x, qx_blocks.amax(1) + r, right=True,
+                            out_int32=True)
+    return lo, hi - lo
 
 
 def slab_top1(slab: SlabIndex, queries: torch.Tensor, radius,

@@ -3,14 +3,40 @@
 Counterpart of ``tpu3d/ops/transforms.py`` (``make_transform``,
 ``transform_points``, ``invert_transform``, ``euler_xyz_to_matrix``,
 ``matrix_to_rpy_zyx``, ``kabsch_quat``, ``_qcp_quat_planes``,
-``kabsch3_planes``). Plane functions take tuples of equally shaped tensors
-(one per coordinate or matrix entry) and do elementwise math only, in the
-same operation order as the JAX package so results agree to rounding.
+``kabsch3_planes``, ``kabsch_from_cross_cov``). Plane functions take
+tuples of equally shaped tensors (one per coordinate or matrix entry) and
+do elementwise math only, in the same operation order as the JAX package
+so results agree to rounding.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def kabsch_from_cross_cov(sw, sp, sq, H) -> tuple[np.ndarray, np.ndarray]:
+    """Kabsch (R, t) from sufficient statistics, on the host in numpy fp32
+    (the ICP loop solves there after its one readback): sw = Σw, sp/sq the
+    weighted coordinate sums, H (3, 3) the centred weighted
+    cross-covariance Σ w (p − p̄)(q − q̄)ᵀ. SVD with the reflection fix, as
+    the JAX package's ``kabsch_from_cross_cov``. A non-finite H gives a
+    non-finite pose, which the loop's finite guard catches."""
+    sws = np.maximum(np.float32(sw), np.float32(1e-12))
+    src_mean = np.asarray(sp, np.float32) / sws
+    tgt_mean = np.asarray(sq, np.float32) / sws
+    H = np.asarray(H, np.float32)
+    if not np.isfinite(H).all():
+        nan = np.float32(np.nan)
+        return np.full((3, 3), nan, np.float32), np.full(3, nan, np.float32)
+    U, _, Vt = np.linalg.svd(H)
+    V = Vt.T
+    R = V @ U.T
+    if np.linalg.det(R) < 0:
+        V = V * np.array([1.0, 1.0, -1.0], np.float32)
+        R = V @ U.T
+    t = tgt_mean - R @ src_mean
+    return R.astype(np.float32), t.astype(np.float32)
 
 
 def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,15 @@
 
 Counterpart of ``tpu3d/ops/voxel.py`` (``voxel_downsample``, ``compact``).
 The JAX ``lexsort`` becomes three stable sorts (last key first), and
-``segment_sum`` becomes ``index_add_``. Output order is ascending voxel
-key; valid centroids occupy a prefix of the same capacity.
+``segment_sum`` a sum over each voxel's run of sorted rows
+(``torch.segment_reduce``), which adds the rows in order on the CPU and
+the card alike. (``index_add_`` adds by atomics on the card, in an order
+that changes from run to run: so would the centroids' last bits, and
+every registration from them.) Padding rows, which sort last, each
+form a segment of their own (weight 0, so an invalid row): on the card a
+segment is one thread's loop, and the padding of a masked frame runs to
+hundreds of thousands of rows. Output order is ascending voxel key;
+valid centroids occupy a prefix of the same capacity.
 """
 
 from __future__ import annotations
@@ -39,23 +46,24 @@ def voxel_downsample(cloud: PointCloud, voxel_size: float) -> PointCloud:
     m_sorted = cloud.mask[order]
 
     prev = torch.roll(c_sorted, 1, dims=0)
-    new_seg = torch.any(c_sorted != prev, dim=1)
+    new_seg = torch.any(c_sorted != prev, dim=1) | ~m_sorted
     new_seg[0] = True
     seg_id = torch.cumsum(new_seg.to(torch.int32), 0) - 1
 
     w = m_sorted.to(torch.float32)
-    zeros = torch.zeros((n,), dtype=torch.float32, device=cloud.device)
-    counts = zeros.index_add(0, seg_id, w)
-    sums = torch.zeros((n, 3), dtype=torch.float32, device=cloud.device)
-    sums = sums.index_add(0, seg_id, p_sorted * w[:, None])
+    lengths = torch.bincount(seg_id, minlength=n)
+
+    def segment_sum(x):
+        return torch.segment_reduce(x, "sum", lengths=lengths, axis=0,
+                                    unsafe=True)
+
+    counts = segment_sum(w)
+    sums = segment_sum(p_sorted * w[:, None])
     denom = torch.clamp_min(counts, 1.0)[:, None]
 
     out_colors = None
     if cloud.colors is not None:
-        c = torch.zeros_like(sums).index_add(
-            0, seg_id, cloud.colors[order] * w[:, None]
-        )
-        out_colors = c / denom
+        out_colors = segment_sum(cloud.colors[order] * w[:, None]) / denom
     return PointCloud(points=sums / denom, mask=counts > 0, colors=out_colors)
 
 
