@@ -102,11 +102,15 @@ Phases, each fatal on failure:
   (slab_top1 and K8's plain version: 1 warm run, median of 3); beside
   them ``device_ms``, the device time of one call (10 calls queued behind
   a device-side sleep, between two CUDA events), for K2-K9. K2-K4, K8
-  and K9 are held bit for bit, K7's n_corr and matches too. K7 also
-  reports one ICP iteration with its readback (``iteration_ms``); K4, on
-  each dense layout, both of its kernels' device ms
-  (``device_ms_threads``, ``device_ms_lanes``) and the one its launch
-  plan picks (``plan``).
+  and K9 are held bit for bit (K3 on all 40 rows), K7's n_corr and
+  matches too. K7 also reports one ICP iteration with its readback
+  (``iteration_ms``). Each side of every launch-plan threshold is forced
+  (through ``moments_plan``, ``spfh_plan``, ``fpfh_plan``), held bit for
+  bit to the plan's own result, and timed (``device_ms_<side>``), beside
+  the side the plan picks (``plan``): K2 one CTA a block or two
+  (``block``, ``halves``) and K3 a thread a query or its lane kernel
+  (``threads``, ``lanes``) on every layout, K4 its two kernels on each
+  dense layout.
   ``bound_ms`` is the larger of this run's operations over 67 TFLOP/s
   (fp32 without tensor cores) and its bytes (each input read once, each
   output written once) over 3.35 TB/s, an H100 SXM's peaks; the window
@@ -158,7 +162,8 @@ PEAK_HBM = 3.35e12  # bytes/s
 
 # The kernel functions behind each kernels-line entry (its name before " (").
 KERNEL_FUNCTIONS = {
-    "moments_sweep": ["moments_kernel"], "spfh_sweep": ["spfh_kernel"],
+    "moments_sweep": ["moments_kernel"],
+    "spfh_sweep": ["spfh_kernel", "spfh_lanes_kernel"],
     "fpfh_sweep": ["fpfh_kernel", "fpfh_lanes_kernel"],
     "nn_top1": ["nn_desc_kernel", "nn_desc_reduce", "nn_top1_kernel"],
     "ransac_score": ["score_tc_kernel", "score_reduce"],
@@ -818,39 +823,52 @@ def prepare_sweeps(torch, features, fused_features, al, lo, lens, block, r2,
         well = (po[3] >= 3) & (q8[3] > 0.5)
         cos = (ko[:3] * po[:3]).sum(0).abs()[well]
         log(f"K2{sfx}: normals |cos| min {float(cos.min()):.7f} on "
-            f"{int(well.sum())} rows")
-        check(int(well.sum()) > 0 and float(cos.min()) >= 0.9999,
-              f"K2{sfx} normals disagree")
+            f"{int(well.sum())} rows; bit for bit: {torch.equal(ko, po)}")
+        check(int(well.sum()) > 0 and torch.equal(ko, po),
+              f"K2{sfx} differs from its plain version")
         return int(po[3][q8[3] > 0.5].sum())
 
+    sparse = blocks is not None
+    nblocks = lo.shape[0]
+    sms = torch.cuda.get_device_properties(q8.device).multi_processor_count
     # K2 reads xyz and validity and returns the normal and the count.
+    k2_args = (q8, al.padded_points_t, lo, len_a, r2)
     nrm8 = sweep_phase(torch, "K2", features.moments_sweep,
-                       features.moments_sweep_plain,
-                       (q8, al.padded_points_t, lo, len_a, r2), block, q8, e2,
-                       sfx, 18.0, 4, 4, k2_check, every_query=True)
+                       features.moments_sweep_plain, k2_args, block, q8, e2,
+                       sfx, 18.0, 4, 4, k2_check, every_query=True,
+                       sparse=sparse)
+    force_plans(torch, features, "K2", "moments_plan",
+                features.moments_plan(block, nblocks, sparse, sms),
+                {"block": (1, block // 32, 1), "halves": (2, block // 64, 1),
+                 "tile2": (1, block // 64, 2), "tile4": (1, block // 128, 4),
+                 "halves_tile2": (2, block // 128, 2)},
+                k2_args, block, nrm8, e2, sfx, sparse)
     q8n, pb = fused_features.spfh_operands(al, nrm8)
 
     def k3_check(ko, po):
         check(torch.equal(ko[33], po[33]), f"K3{sfx} counts differ")
         live = po[33] > 0
-        differ = live & ~(ko[:33] == po[:33]).all(0)
-        frac = 1.0 - float(differ.sum()) / max(int(live.sum()), 1)
+        differ = ~(ko == po).all(0)
         ids = differ.nonzero()[:, 0].tolist()
-        e3["rows_identical" + sfx] = frac
         e3["rows_differing" + sfx] = len(ids)
-        e3["differing_rows" + sfx] = ids[:20]
-        log(f"K3{sfx}: histograms identical on {frac:.6f} of "
-            f"{int(live.sum())} rows; {len(ids)} differing rows (padded-row "
-            f"ids) {ids[:20]}")
-        check(int(live.sum()) > 0 and frac >= 0.999,
-              f"K3{sfx} histograms disagree")
+        log(f"K3{sfx}: all 40 rows bit for bit on {ko.shape[1] - len(ids)} "
+            f"of {ko.shape[1]} columns ({int(live.sum())} with neighbours); "
+            f"differing (padded-row ids) {ids[:20]}")
+        check(int(live.sum()) > 0 and not ids,
+              f"K3{sfx} differs from its plain version")
         return int(po[33][q8n[3] > 0.5].sum())
 
     # K3 reads centred xyz, validity and the normal; returns 33 bins and the
     # count.
+    k3_args = (q8n, pb, lo, len_b, r2)
     spfh40 = sweep_phase(torch, "K3", features.spfh_sweep,
-                         features.spfh_sweep_plain, (q8n, pb, lo, len_b, r2),
-                         block, q8n, e3, sfx, 100.0, 7, 34, k3_check)
+                         features.spfh_sweep_plain, k3_args, block, q8n, e3,
+                         sfx, 100.0, 7, 34, k3_check, sparse=sparse)
+    force_plans(torch, features, "K3", "spfh_plan",
+                features.spfh_plan(block, nblocks, sparse, sms),
+                {"threads": (1, block // 32, False),
+                 "lanes": (block // 32, 8, True)},
+                k3_args, block, spfh40, e3, sfx, sparse)
     pc = fused_features.fpfh_operands(al, spfh40)
 
     def k4_check(ko, po):
@@ -866,34 +884,38 @@ def prepare_sweeps(torch, features, fused_features, al, lo, lens, block, r2,
                      block, q8, e4, sfx, 69.0, 3, 33, k4_check,
                      blocks=blocks)
     if blocks is None:
-        k4_plans(torch, features, (q8, pc, lo, len_c, r2), block, k4, e4,
-                 sfx)
+        force_plans(torch, features, "K4", "fpfh_plan",
+                    features.fpfh_plan(block, nblocks, False, sms),
+                    {"threads": (1, block // 32), "lanes": (block // 32, 8)},
+                    (q8, pc, lo, len_c, r2), block, k4, e4, sfx, None)
 
 
-def k4_plans(torch, features, args, block, out, entry, sfx):
-    """Both of K4's kernels on one dense layout, each forced through
-    ``features.fpfh_plan``: bit for bit equal to the plan's own result,
-    and each one's device ms per call, the data behind the plan's
-    threshold."""
-    plan = features.fpfh_plan
+def force_plans(torch, features, name, plan_fn, chosen, forced, args, block,
+                out, entry, sfx, sparse):
+    """The sweep ``name`` under each launch of ``forced`` ({label: plan}),
+    each forced through ``features.<plan_fn>``: bit for bit equal to the
+    plan's own result ``out``, and each one's device ms per call, the data
+    behind the plan's thresholds. ``chosen`` is the plan's own launch on
+    this layout. ``sparse`` is passed to K2 and K3 (None: K4, which takes
+    no such argument)."""
+    plan = getattr(features, plan_fn)
+    fn = {"K2": features.moments_sweep, "K3": features.spfh_sweep,
+          "K4": features.fpfh_sweep}[name]
+    kw = {} if sparse is None else {"sparse": sparse}
     nblocks = args[2].shape[0]
-    sms = torch.cuda.get_device_properties(
-        args[0].device).multi_processor_count
-    slices, _ = plan(block, nblocks, False, sms)
-    entry[f"plan{sfx}"] = "threads" if slices == 1 else "lanes"
-    forced = {"threads": (1, block // 32), "lanes": (block // 32, 8)}
+    entry[f"plan{sfx}"] = [k for k, v in forced.items() if v == chosen][0]
     try:
-        for name, launch in forced.items():
-            features.fpfh_plan = lambda *a, launch=launch: launch
-            check(torch.equal(features.fpfh_sweep(*args, block), out),
-                  f"K4{sfx}: the {name} kernel differs")
-            entry[f"device_ms_{name}{sfx}"] = per_call_device_ms(
-                torch, lambda: features.fpfh_sweep(*args, block))
+        for label, launch in forced.items():
+            setattr(features, plan_fn, lambda *a, launch=launch: launch)
+            check(torch.equal(fn(*args, block, **kw), out),
+                  f"{name}{sfx}: the {label} launch differs")
+            entry[f"device_ms_{label}{sfx}"] = per_call_device_ms(
+                torch, lambda: fn(*args, block, **kw))
     finally:
-        features.fpfh_plan = plan
-    log(f"K4{sfx}: {nblocks} blocks, plan {entry['plan' + sfx]}; device "
-        f"ms threads {entry['device_ms_threads' + sfx]:.4f}, lanes "
-        f"{entry['device_ms_lanes' + sfx]:.4f}")
+        setattr(features, plan_fn, plan)
+    log(f"{name}{sfx}: {nblocks} blocks, plan {entry['plan' + sfx]}; device "
+        + ", ".join(f"{k} {entry[f'device_ms_{k}{sfx}']:.4f}"
+                    for k in forced) + " ms")
 
 
 def sparse_sweeps(torch, features, fused_features, cloud, radius, r2,
@@ -945,13 +967,13 @@ def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7, k7m):
     r2 = float(np.float32(radius) * np.float32(radius))
 
     # --- a. K2, K3, K4 on both layouts the main path gives them -----------
-    e2 = {"name": "moments_sweep (K2, with the K1 walk)", "route": "cuda",
+    e2 = {"name": "moments_sweep (K2, three windows a block)", "route": "cuda",
           "source": "tpu3d_torch/csrc/features.cu",
           "replaces": "tpu3d/ops/features_pallas.py:200"}
-    e3 = {"name": "spfh_sweep (K3, with the K1 walk)", "route": "cuda",
+    e3 = {"name": "spfh_sweep (K3, three windows a block)", "route": "cuda",
           "source": "tpu3d_torch/csrc/features.cu",
           "replaces": "tpu3d/ops/features_pallas.py:346"}
-    e4 = {"name": "fpfh_sweep (K4, with the K1 walk)", "route": "cuda",
+    e4 = {"name": "fpfh_sweep (K4, three windows a block)", "route": "cuda",
           "source": "tpu3d_torch/csrc/features.cu",
           "replaces": "tpu3d/ops/features_pallas.py:390"}
     sweeps = [(e2, features.moments_sweep), (e3, features.spfh_sweep),

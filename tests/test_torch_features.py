@@ -88,6 +88,73 @@ def test_k3_plain_matches_pallas(operands):
     assert not got[34:].any() and not ref[34:].any()
 
 
+@pytest.fixture(scope="module", params=[128, 256])
+def sparse_operands(request):
+    """The sparse prepare's operands (member-set windows) of an 8,000-point
+    surface in capacity 8,192 at block 128 or 256, with sweep B's normals
+    from the plain K2."""
+    rng = np.random.default_rng(4)
+    n, cap, block = 8000, 8192, request.param
+    xy = rng.uniform(-0.25, 0.25, size=(n, 2)).astype(np.float32)
+    z = 0.7 + 0.03 * np.sin(25 * xy[:, 0]) * np.cos(22 * xy[:, 1])
+    pts = np.zeros((cap, 3), np.float32)
+    pts[:n] = np.column_stack([xy, z])
+    cloud = PointCloud(points=torch.from_numpy(pts),
+                       mask=torch.from_numpy(np.arange(cap) < n))
+    al, lo, ln = fused_features.aligned_layout(cloud, R, block)
+    len_a, len_b, _, _ = fused_features.member_lengths(lo, ln, block,
+                                                       2048 // block)
+    assert 0 < int((len_b > 0).any(1).sum()) < lo.shape[0]
+    q8 = fused_features.moments_operands(al)
+    nrm8 = features.moments_sweep(q8, al.padded_points_t, lo, len_a, R2,
+                                  block)
+    return al, lo, len_a, len_b, block, q8, nrm8
+
+
+def test_k2_sparse_hint_matches_pallas(sparse_operands):
+    """K2's plain version with the sparse launch hint, on the sparse
+    prepare's windows at block 128 and 256: the same result as without it,
+    and the Pallas kernel's counts exactly and normals to |cos| >= 0.9999."""
+    al, lo, len_a, _, block, q8, nrm8 = sparse_operands
+    got = features.moments_sweep(q8, al.padded_points_t, lo, len_a, R2,
+                                 block, sparse=True)
+    assert torch.equal(got, nrm8)
+    ref = _np(moments_sweep_pallas(
+        jnp.asarray(q8.numpy()), jnp.asarray(al.padded_points_t.numpy()),
+        jnp.asarray(lo.numpy()), jnp.asarray(len_a.numpy()), R2,
+        block=block, sub=256, interpret=True))
+    g = got.numpy()
+    np.testing.assert_array_equal(g[3], ref[3])
+    well = (ref[3] >= 3) & (q8[3].numpy() > 0.5)
+    assert well.sum() > 300
+    assert np.abs((g[:3] * ref[:3]).sum(0))[well].min() >= 0.9999
+
+
+def test_k3_sparse_hint_matches_pallas(sparse_operands):
+    """K3's plain version with the sparse launch hint: the same result as
+    without it, and the Pallas kernel's counts exactly, its histograms on
+    at least 99 % of the live rows."""
+    al, lo, _, len_b, block, _, nrm8 = sparse_operands
+    q8n, packed_b = fused_features.spfh_operands(al, nrm8)
+    got = features.spfh_sweep(q8n, packed_b, lo, len_b, R2, block,
+                              sparse=True)
+    assert torch.equal(got, features.spfh_sweep(q8n, packed_b, lo, len_b,
+                                                R2, block))
+    got = got.numpy()
+    ref = _np(spfh_sweep_pallas(
+        jnp.asarray(q8n.numpy()), jnp.asarray(packed_b.numpy()),
+        jnp.asarray(lo.numpy()), jnp.asarray(len_b.numpy()), R2,
+        block=block, sub=256, interpret=True))
+    np.testing.assert_array_equal(got[33], ref[33])
+    live = ref[33] > 0
+    assert live.sum() > 300
+    same = np.all(got[:33] == ref[:33], axis=0)
+    assert same[live].mean() >= 0.99, same[live].mean()
+    # Rows of blocks without a live window are zero in both.
+    dead = np.repeat(~(len_b.numpy() > 0).any(1), block)
+    assert dead.any() and not got[:, dead].any() and not ref[:, dead].any()
+
+
 def test_k4_plain_matches_pallas(operands):
     al, lo, (_, len_b, len_c), block = operands
     q8 = fused_features.moments_operands(al)
@@ -144,6 +211,43 @@ def test_k4_launch_plan(block, nblocks, listed, plan):
     slices, warps = features.fpfh_plan(block, nblocks, listed, 132)
     assert (slices, warps) == plan
     assert block // slices == (32 if slices > 1 else warps * 32)
+
+
+@pytest.mark.parametrize("block,nblocks,sparse,plan", [
+    (128, 191, False, (1, 4, 1)), (128, 255, False, (1, 4, 1)),
+    (128, 911, False, (1, 4, 1)), (128, 1151, False, (1, 2, 2)),
+    (128, 8700, False, (1, 2, 2)), (256, 520, True, (2, 4, 1)),
+    (256, 4606, True, (2, 4, 1)), (256, 192, True, (2, 4, 1)),
+    (128, 520, True, (2, 2, 1)), (128, 1056, False, (1, 4, 1)),
+    (128, 1057, False, (1, 2, 2)), (256, 2000, False, (1, 4, 2)),
+])
+def test_k2_launch_plan(block, nblocks, sparse, plan):
+    """K2: the sparse prepare's layouts (100k's 520 blocks of 256, 1M's
+    4,606, the bin instance's 192) two CTAs a block, a query a thread; a
+    dense layout one CTA a block, a query a thread up to
+    TILE_BLOCKS_PER_SM (8) blocks per SM (132 here: the batch's 191 and
+    255 blocks, 100k's 911), two queries a thread above (the bin
+    reference's 1,151, 1M's 8,700)."""
+    slices, warps, per = features.moments_plan(block, nblocks, sparse, 132)
+    assert (slices, warps, per) == plan
+    assert slices * warps * 32 * per == block
+
+
+@pytest.mark.parametrize("block,nblocks,sparse,plan", [
+    (128, 191, False, (4, 8, True)), (128, 255, False, (4, 8, True)),
+    (128, 396, False, (4, 8, True)), (128, 397, False, (1, 4, False)),
+    (128, 911, False, (1, 4, False)), (128, 1151, False, (1, 4, False)),
+    (128, 8700, False, (1, 4, False)), (256, 520, True, (8, 8, True)),
+    (256, 4606, True, (8, 8, True)), (256, 192, True, (8, 8, True)),
+    (256, 900, False, (1, 8, False)),
+])
+def test_k3_launch_plan(block, nblocks, sparse, plan):
+    """At most SPFH_LANE_BLOCKS_PER_SM (3) blocks per SM (132 here), or the
+    sparse prepare: the lane kernel on slices of 32 queries, 8 warps each;
+    a larger dense layout: one CTA a block, a thread a query."""
+    slices, warps, lanes = features.spfh_plan(block, nblocks, sparse, 132)
+    assert (slices, warps, lanes) == plan
+    assert block // slices == (32 if lanes else warps * 32)
 
 
 def test_newton_eigvec_matches_jax(rng):

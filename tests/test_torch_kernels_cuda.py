@@ -542,6 +542,211 @@ def test_fpfh_kernel_block_list(dev, block):
     assert float(kn.abs().sum()) > 0
 
 
+def _k2_plans(block):
+    """(slices, warps, per) launches of K2, ``per`` queries a thread: CTAs
+    of a whole block, half a block (the sparse prepare's plan) or 32
+    queries, a query a thread; two or four queries a thread on CTAs of a
+    whole block, two on CTAs of half a block."""
+    return [(1, block // 32, 1), (2, block // 64, 1), (block // 32, 1, 1),
+            (1, block // 64, 2), (1, block // 128, 4), (2, block // 128, 2)]
+
+
+def _k3_plans(block):
+    """(slices, warps, lanes) launches of K3: a thread a query on CTAs of a
+    whole block or half a block, the lane kernel on CTAs of 32 queries (the
+    plan for small and sparse layouts) or a whole block."""
+    return [(1, block // 32, False), (2, block // 64, False),
+            (block // 32, 8, True), (1, 8, True)]
+
+
+def _hold_k2(monkeypatch, dev, q8, packed3, lo, ln, r2, block):
+    """K2 under every launch against its plain version on the card, bit
+    for bit; returns the plain result (on the CPU)."""
+    on = [x.to(dev) for x in (q8, packed3, lo, ln)]
+    plain = features.moments_sweep_plain(*on, r2, block).cpu()
+    for plan in _k2_plans(block):
+        monkeypatch.setattr(features, "moments_plan", lambda *a, p=plan: p)
+        got = features.moments_sweep(*on, r2, block,
+                                     sparse=plan[0] > 1).cpu()
+        torch.cuda.synchronize()
+        assert torch.equal(got[3], plain[3]), plan
+        assert torch.equal(got, plain), plan
+    return plain
+
+
+def _hold_k3(monkeypatch, dev, q8n, packed10, lo, ln, r2, block):
+    """K3 under every launch against its plain version on the card, bit
+    for bit on all 40 rows; returns the plain result."""
+    on = [x.to(dev) for x in (q8n, packed10, lo, ln)]
+    plain = features.spfh_sweep_plain(*on, r2, block).cpu()
+    for plan in _k3_plans(block):
+        monkeypatch.setattr(features, "spfh_plan", lambda *a, p=plan: p)
+        got = features.spfh_sweep(*on, r2, block, sparse=plan[2]).cpu()
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain), plan
+    return plain
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_moments_spfh_kernels_every_plan(dev, monkeypatch, block):
+    """K2 and K3 under each launch their plans can take (_k2_plans,
+    _k3_plans) on a
+    surface layout of ~160 (block 128) or ~80 blocks, against their plain
+    versions bit for bit."""
+    cloud = _surface_cloud(20000, 20480, seed=4)
+    r = 0.012
+    r2 = float(np.float32(r) * np.float32(r))
+    al, lo, ln = fused_features.aligned_layout(cloud, r, block)
+    q8 = fused_features.moments_operands(al)
+    nrm8 = _hold_k2(monkeypatch, dev, q8, al.padded_points_t, lo, ln, r2,
+                    block)
+    assert float(nrm8[3].max()) > 10
+    q8n, pb = fused_features.spfh_operands(al, nrm8)
+    spfh = _hold_k3(monkeypatch, dev, q8n, pb, lo, ln, r2, block)
+    assert float(spfh[33].max()) > 10
+
+
+def _edge_case(block, live_blocks):
+    """Four blocks of crafted operands, r² = 4. Block 0's queries (p = 0
+    on the even rows, small random p on the odd) face window 0, rows
+    [2·block, 2·block + 200) (two tiles), and window 1, rows 5-39 of it
+    again (duplicate rows). Its candidates: ten at d = (2, 0, 0), d² = r²
+    exactly, whose b = (2·T_k, 0, 0) put α of a query with n = (1, 0, 0)
+    on threshold T_k; ten just outside the radius; ten at d² equal to the
+    1e-16 floor and ten just below it; ten at the query (d² = 0); the rest
+    random. Queries with n = (T_k, 0, 0) put φ on T_k. Block 2 (if
+    ``live_blocks`` is 2) uses block 0's windows, blocks 1 and 3 have
+    none; some rows are invalid."""
+    rng = np.random.default_rng(block)
+    thr = features.THRESH
+    m = 4 * block
+    q = np.zeros((8, m), np.float32)
+    pk = np.zeros((10, m), np.float32)
+    q[3] = (rng.uniform(size=m) > 0.1).astype(np.float32)
+    odd = np.arange(m) % 2 == 1
+    q[:3, odd] = rng.uniform(-0.5, 0.5, (3, int(odd.sum())))
+    nrm = rng.normal(size=(3, m))
+    nrm /= np.linalg.norm(nrm, axis=0)
+    kind = np.arange(m) % 3
+    nrm[:, kind == 0] = [[1.0], [0.0], [0.0]]
+    nrm[:, kind == 1] = 0.0
+    nrm[0, kind == 1] = thr[np.arange(m)[kind == 1] % 10]
+    q[4:7] = nrm
+    c0 = 2 * block
+    # 1e-16 on the floor: the float32 x with fl(x²) == fl(1e-16), and one
+    # whose square lies below it.
+    floor = np.float32(1e-16)
+    xs = np.float32(1e-8) + np.arange(-4000, 4000, dtype=np.float32) * \
+        np.spacing(np.float32(1e-8))
+    on_floor = xs[(xs * xs) == floor]
+    below = xs[(xs * xs) < floor][-1]
+    x_floor = on_floor[0] if on_floor.size else xs[(xs * xs) > floor][0]
+    cand = np.zeros((10, 200), np.float32)
+    cand[:3] = rng.uniform(-2.2, 2.2, (3, 200))
+    cand[3:6] = rng.normal(size=(3, 200))
+    cand[6:9] = rng.normal(size=(3, 200))
+    cand[9] = rng.normal(size=200)
+    k = np.arange(10)
+    cand[:3, 0:10] = [[2.0], [0.0], [0.0]]
+    cand[3:6, 0:10] = 0.0
+    cand[3, 0:10] = 2.0 * thr[k]
+    cand[:3, 10:20] = [[np.nextafter(np.float32(2), np.float32(3))], [0.0],
+                       [0.0]]
+    cand[:3, 20:30] = [[x_floor], [0.0], [0.0]]
+    cand[:3, 30:40] = [[below], [0.0], [0.0]]
+    cand[:3, 40:50] = 0.0
+    pk[:, c0:c0 + 200] = cand
+    q[:3, c0:c0 + 200] = cand[:3]
+    lo = np.zeros((4, 3), np.int32)
+    ln = np.zeros((4, 3), np.int32)
+    for b in (0, 2)[:live_blocks]:
+        lo[b] = [c0, c0 + 5, 0]
+        ln[b] = [200, 35, 0]
+    t = torch.from_numpy
+    return t(q), t(pk), t(lo), t(ln)
+
+
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("live_blocks", [1, 2])
+def test_moments_spfh_kernels_edge_pairs(dev, monkeypatch, block,
+                                         live_blocks):
+    """The crafted pairs of _edge_case under every launch, bit for bit
+    against the plain versions: d² == r² is in (K2, K3), the 1e-16 floor
+    is in for K3 and just below it out, d² = 0 counts for K2 only, α and φ
+    exactly on a threshold fall in the bin above it, duplicate rows count
+    twice, and the rows of blocks without a window are what an empty walk
+    gives them (one live block, or two)."""
+    q, pk, lo, ln = _edge_case(block, live_blocks)
+    r2 = 4.0
+    k2 = _hold_k2(monkeypatch, dev, q, pk[:3].contiguous(), lo, ln, r2,
+                  block)
+    k3 = _hold_k3(monkeypatch, dev, q, pk, lo, ln, r2, block)
+    # Query 0 (p = 0): K2 counts the ten rows at d² = 0 and the twenty
+    # below the floor (ten of them in window 1 again) that K3 leaves out.
+    assert float(k3[33, 0]) >= 20
+    assert float(k2[3, 0] - k3[33, 0]) == 30.0
+    dead = torch.ones(4, dtype=torch.bool)
+    dead[[0, 2][:live_blocks]] = False
+    dead = dead.repeat_interleave(block)
+    assert not k3[:, dead].any()
+    assert not k2[3, dead].any()
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_sparse_windows_equal_dense_on_card(dev, block):
+    """A dense layout made sparse (every block's windows zeroed but every
+    seventh block's), launched with the sparse grid: K2 and K3 give the
+    live blocks' rows of the dense launch bit for bit, every row of the
+    plain versions on the sparse windows, and each wrapper counts one
+    launch."""
+    cloud = _surface_cloud(20000, 20480, seed=5)
+    r = 0.012
+    r2 = float(np.float32(r) * np.float32(r))
+    al, lo, ln = fused_features.aligned_layout(cloud, r, block)
+    keep = torch.zeros(lo.shape[0], dtype=torch.bool)
+    keep[::7] = True
+    ln_s = torch.where(keep[:, None], ln, 0)
+    rows = keep.repeat_interleave(block)
+    q8 = fused_features.moments_operands(al)
+    on = [x.to(dev) for x in (q8, al.padded_points_t, lo)]
+    before = (features.moments_sweep.launches, features.spfh_sweep.launches)
+    kd = features.moments_sweep(*on, ln.to(dev), r2, block).cpu()
+    ks = features.moments_sweep(*on, ln_s.to(dev), r2, block,
+                                sparse=True).cpu()
+    assert torch.equal(ks[:, rows], kd[:, rows])
+    assert torch.equal(ks, features.moments_sweep_plain(
+        q8, al.padded_points_t, lo, ln_s, r2, block))
+    q8n, pb = fused_features.spfh_operands(al, kd)
+    on = [x.to(dev) for x in (q8n, pb, lo)]
+    sd = features.spfh_sweep(*on, ln.to(dev), r2, block).cpu()
+    ss = features.spfh_sweep(*on, ln_s.to(dev), r2, block, sparse=True)
+    assert torch.equal(ss.cpu()[:, rows], sd[:, rows])
+    assert torch.equal(ss, features.spfh_sweep_plain(*on, ln_s.to(dev), r2,
+                                                     block))
+    assert not ss[:, ~rows.to(dev)].any() and float(ss[33].max()) > 10
+    torch.cuda.synchronize()
+    assert (features.moments_sweep.launches,
+            features.spfh_sweep.launches) == (before[0] + 2, before[1] + 2)
+
+
+def test_moments_spfh_reject_bad_plans(dev, monkeypatch):
+    """A plan the kernels do not take raises: slices that do not divide
+    the block, more than 8 warps, a thread launch whose warps and queries
+    a thread do not cover its slice, K2 at other than 1, 2 or 4 queries a
+    thread, a lane launch whose warps do not share its slice's queries
+    evenly."""
+    q, pk, lo, ln = (x.to(dev) for x in _edge_case(128, 1))
+    cases = [("moments_plan", features.moments_sweep, pk[:3].contiguous(),
+              [(3, 8, 1), (1, 2, 1), (1, 16, 1), (1, 2, 4), (1, 1, 3)]),
+             ("spfh_plan", features.spfh_sweep, pk,
+              [(3, 8, True), (4, 16, True), (1, 2, False), (4, 3, True)])]
+    for name, fn, packed, bad in cases:
+        for plan in bad:
+            monkeypatch.setattr(features, name, lambda *a, p=plan: p)
+            with pytest.raises(RuntimeError):
+                fn(q, packed, lo, ln, 4.0, 128)
+
+
 def test_prepare_sweeps_reject_bad_block(dev):
     z = torch.zeros((8, 192), device=dev)
     ij = torch.zeros((3, 3), dtype=torch.int32, device=dev)

@@ -46,8 +46,8 @@ SIGNATURES = {
                            _P, _P, _P],
     "tpu3d_icp_p2plane_stats": [_P] * 4 + [_I] * 3 + [_P, _F, _F, _I]
     + [_P] * 7,
-    "tpu3d_moments_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
-    "tpu3d_spfh_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "tpu3d_moments_sweep": [_P] * 4 + [_I] * 6 + [_F, _P, _P],
+    "tpu3d_spfh_sweep": [_P] * 4 + [_I] * 6 + [_F, _P, _P, _P],
     "tpu3d_fpfh_sweep": [_P] * 5 + [_I] * 5 + [_F, _P, _P],
     "tpu3d_bilateral_filter": [_P, _P, _I, _I, _I, _D, _F, _P],
     "tpu3d_nn_walk_top1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,

@@ -1,5 +1,7 @@
-// K1: the multi-window walk shared by the fused-prepare sweeps (K2-K4, three
-// windows per block) and the slab2 top-1 walk (K8, k_windows per block).
+// K1: the multi-window walk of the slab2 top-1 walk (K8, k_windows per
+// block), and the exactly rounded arithmetic and cp.async helpers that the
+// fused-prepare sweeps (K2-K4, which walk their three windows per block
+// with their own double-buffered tiles) and K7 share with it.
 //
 // Replaces tpu3d/ops/pallas_walk.py: window_walk / window_walk_vmem. One
 // CUDA block serves one query block of blockDim.x padded rows, one thread
@@ -80,20 +82,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Sum of v over the block's threads by halving (blockDim.x a power of two),
-// the order of the plain versions' _tree_sum. Every thread gets the sum.
-__device__ __forceinline__ float block_tree_sum(float v, float* red) {
-  const int tid = threadIdx.x;
-  __syncthreads();
-  red[tid] = v;
-  __syncthreads();
-  for (int stride = blockDim.x / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) red[tid] = add_rn(red[tid], red[tid + stride]);
-    __syncthreads();
-  }
-  return red[0];
 }
 
 }  // namespace tpu3d

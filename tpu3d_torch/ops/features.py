@@ -14,14 +14,15 @@ window costs nothing, which is how the sparse prepare prunes.
      n·p ≤ 0, zero on invalid rows → f32[8, Mp]: rows 0-2 normal, 3 count.
   K3 ``spfh_sweep``: over candidates with r² ≥ d² ≥ 1e-16 on the caller's
      centroid-shifted coordinates, the Darboux angles α, φ and θ (θ through
-     the diamond-angle surrogate), 30 cumulative threshold counts, then the
-     L1-normalised 33-bin SPFH → f32[40, Mp]: rows 0-32 SPFH, 33 count.
+     the diamond-angle surrogate), each binned by the 20 fp32 thresholds
+     (ten per angle) into the L1-normalised 33-bin SPFH → f32[40, Mp]:
+     rows 0-32 SPFH, 33 count.
   K4 ``fpfh_sweep``: Σ over candidates with r² ≥ d² ≥ 1e-16 (raw
      coordinates) of SPFH_j / d → f32[Mp, 36], columns 0-32 used; with a
      block list (the sparse prepare's query blocks) it runs on those blocks
      only.
 
-The kernels live in ``csrc/features.cu`` (walk in ``csrc/window_walk.cuh``).
+The kernels live in ``csrc/features.cu`` (helpers in ``csrc/window_walk.cuh``).
 Each plain version gathers a group of blocks' windows into padded (R, G, L)
 candidate planes and walks the L columns in chunks of ``_COLS``: the
 per-pair terms of a chunk are elementwise over (G, B, _COLS), and the
@@ -29,11 +30,21 @@ floating-point sums then take its columns in order. So it never builds an
 Mp × Mp plane, and its sums take the kernel's order: one rounding per
 operation, sequential over candidates. ``sub`` is a TPU tile width that
 does not change results; it is accepted and ignored.
+
+Each CUDA wrapper takes its launch from a plan (:func:`moments_plan`,
+:func:`spfh_plan`, :func:`fpfh_plan`): its kernel, CTAs per query block
+and warps per CTA for the layout's block count on this card. K2's and
+K3's CTAs whose block has no window write what an empty walk gives its
+rows and exit at once. ``sparse=True`` (K2, K3: the sparse prepare's
+member sets, most windows empty) takes the plan for few live blocks; it
+changes the launch, not the result, so the plain versions accept it and
+compute the same function.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -41,7 +52,10 @@ import torch
 
 from tpu3d_torch import build
 from tpu3d_torch.device import launches_kernel
-from tpu3d_torch.ops.normals import smallest_eigvec_3x3_planes_newton
+from tpu3d_torch.ops.normals import (
+    smallest_eigvec_3x3_planes_newton,
+    sqrt_rn,
+)
 
 # floor((x+1)·5.5) ≥ b  ⇔  x ≥ b/5.5 − 1, b = 1..10.
 _BIN_THRESH = tuple(b / 5.5 - 1.0 for b in range(1, 11))
@@ -118,17 +132,30 @@ def _check(name, q8, packed, lo, ln, block, rows):
         raise ValueError(f"{name}: lo and ln must be ({mp // block}, 3)")
 
 
-def _launch(fn_name, q8, packed, lo, ln, r2, block, out, *extra):
+def _launch(fn_name, q8, packed, lo, ln, block, plan, r2, out, *extra):
+    """One K2 or K3 launch; ``plan`` its (slices, warps, per or lanes)."""
     fins = [x.contiguous() for x in (q8, packed)]
     if any(x.dtype != torch.float32 for x in fins):
         raise TypeError(f"{fn_name} takes float32 planes")
     ints = [x.to(torch.int32).contiguous() for x in (lo, ln)]
     rc = getattr(build.library(), fn_name)(
         *(x.data_ptr() for x in fins), *(x.data_ptr() for x in ints),
-        q8.shape[1], lo.shape[0], block, float(r2), *extra, out.data_ptr(),
+        q8.shape[1], lo.shape[0], block, *(int(x) for x in plan), float(r2),
+        *extra, out.data_ptr(),
         torch.cuda.current_stream(q8.device).cuda_stream,
     )
     build.check(rc, fn_name)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(device: torch.device) -> int:
+    """The SM count of ``device`` (the launch plans size grids by it)."""
+    return _sms_of(torch.cuda.current_device() if device.index is None
+                   else device.index)
 
 
 # --------------------------------------------------------------------------
@@ -136,8 +163,10 @@ def _launch(fn_name, q8, packed, lo, ln, r2, block, out, *extra):
 # --------------------------------------------------------------------------
 
 
-def moments_sweep_plain(q8, packed3, lo, ln, r2, block):
-    """Plain PyTorch version of K2 (see the module docstring)."""
+def moments_sweep_plain(q8, packed3, lo, ln, r2, block, sparse=False):
+    """Plain PyTorch version of K2 (see the module docstring); ``sparse``
+    is a launch hint of the kernel and changes nothing here."""
+    del sparse
     mp = q8.shape[1]
     nbk = mp // block
     q = q8[:4].reshape(4, nbk, block)
@@ -177,19 +206,51 @@ def moments_sweep_plain(q8, packed3, lo, ln, r2, block):
                         zero, zero, zero, zero])
 
 
-def moments_sweep(q8, packed3, lo, ln, r2, block, sub=None):
+# Dense layouts of more than this many blocks per SM take K2's register
+# tile of two queries a thread. Device ms per call on an H100 (132 SMs),
+# one query a thread / two, blocks of 128 (chip_smoke.py's force_plans):
+# 191 blocks 0.0187 / 0.0275, 255 0.0261 / 0.0354, 911 0.0442 / 0.0455,
+# 1,151 0.0874 / 0.0850, 8,700 0.5302 / 0.4765; the ratio, log-linear in
+# the block count between 911 and 1,151, reaches 1 at ~1,030 blocks, 7.8
+# an SM. Four queries a thread measured slower on every layout (0.0510,
+# 0.0618, 0.0797, 0.1169, 0.5997).
+TILE_BLOCKS_PER_SM = 8
+
+
+def moments_plan(block: int, nblocks: int, sparse: bool,
+                 sms: int) -> tuple[int, int, int]:
+    """(slices, warps, per) of K2's launch: CTAs per query block, warps per
+    CTA and queries per thread. The sparse prepare's few live blocks are
+    cut in two, a query a thread, so that they spread over twice the SMs
+    (device ms, one CTA a block / two, on an H100: 520 blocks of 256, 74
+    live, 0.0633 / 0.0412; 4,606, 214 live, 0.1233 / 0.1106; 192, 21 live,
+    0.0566 / 0.0420; two queries a thread on either measured slower). A
+    dense layout keeps one CTA per block: a query a thread up to
+    TILE_BLOCKS_PER_SM blocks per SM (``sms`` of them), two above, where
+    the card is full and one shared load serving two queries pays."""
+    if sparse:
+        return 2, block // 64, 1
+    if nblocks > TILE_BLOCKS_PER_SM * sms:
+        return 1, block // 64, 2
+    return 1, block // 32, 1
+
+
+def moments_sweep(q8, packed3, lo, ln, r2, block, sub=None, sparse=False):
     """K2: f32[8, Mp] — rows 0-2 the viewpoint-flipped unit normal (zero on
     invalid rows), row 3 the radius-neighbour count.
 
     q8 f32[8, Mp] (rows 0-2 raw xyz, 3 validity), packed3 f32[3, Mp] (raw
-    xyz, sentinel 3e4 on padding), lo/ln i32[Mp/block, 3]. CUDA tensors
-    launch the kernel; CPU tensors take the plain version."""
+    xyz, sentinel 3e4 on padding), lo/ln i32[Mp/block, 3]. ``sparse``: most
+    blocks' windows are empty (the sparse prepare), which the launch plan
+    takes into account. CUDA tensors launch the kernel; CPU tensors take
+    the plain version."""
     del sub
     _check("moments_sweep", q8, packed3, lo, ln, block, 3)
     if not launches_kernel(q8, packed3, lo, ln):
-        return moments_sweep_plain(q8, packed3, lo, ln, r2, block)
+        return moments_sweep_plain(q8, packed3, lo, ln, r2, block, sparse)
     out = torch.empty((8, q8.shape[1]), dtype=torch.float32, device=q8.device)
-    _launch("tpu3d_moments_sweep", q8, packed3, lo, ln, r2, block, out)
+    plan = moments_plan(block, lo.shape[0], sparse, _sms(q8.device))
+    _launch("tpu3d_moments_sweep", q8, packed3, lo, ln, block, plan, r2, out)
     build.count_launch(moments_sweep)
     return out
 
@@ -202,8 +263,10 @@ moments_sweep.launches = 0
 # --------------------------------------------------------------------------
 
 
-def spfh_sweep_plain(q8n, packed10, lo, ln, r2, block):
-    """Plain PyTorch version of K3 (see the module docstring)."""
+def spfh_sweep_plain(q8n, packed10, lo, ln, r2, block, sparse=False):
+    """Plain PyTorch version of K3 (see the module docstring); ``sparse``
+    is a launch hint of the kernel and changes nothing here."""
+    del sparse
     mp = q8n.shape[1]
     nbk = mp // block
     dev = q8n.device
@@ -226,7 +289,7 @@ def spfh_sweep_plain(q8n, packed10, lo, ln, r2, block):
             pin = px * t[6] + py * t[7] + pz * t[8]
             contrib = (own[:, None, j0:j0 + _COLS] & (d2 <= r2)
                        & (d2 >= 1e-16))
-            inv_d = 1.0 / torch.sqrt(torch.clamp_min(d2, 1e-24))
+            inv_d = 1.0 / sqrt_rn(torch.clamp_min(d2, 1e-24))
             phi = (nx * dx + ny * dy + nz * dz) * inv_d
             e = (t[9] - pin) * inv_d
             alpha = anum * inv_d
@@ -252,23 +315,56 @@ def spfh_sweep_plain(q8n, packed10, lo, ln, r2, block):
     ])
 
 
-def spfh_sweep(q8n, packed10, lo, ln, r2, block, sub=None):
+# Dense layouts of up to this many blocks per SM take K3's lane kernel.
+# Lane / thread-per-query device ms on an H100 (132 SMs) at the dense
+# layouts chip_smoke.py runs, blocks of 128: 0.0301 / 0.0466 at 191, 0.0447
+# / 0.0641 at 255, 0.1533 / 0.0981 at 911, 0.3140 / 0.2953 at 1,151,
+# 2.2742 / 1.5054 at 8,700; the ratio, log-linear in the block count
+# between 255 and 911, reaches 1 at ~400 blocks, 3.0 an SM.
+SPFH_LANE_BLOCKS_PER_SM = 3
+
+
+def spfh_plan(block: int, nblocks: int, sparse: bool,
+              sms: int) -> tuple[int, int, bool]:
+    """(slices, warps, lanes) of K3's launch: CTAs per query block, warps
+    per CTA, and whether the lane kernel runs (else a thread a query). The
+    sparse prepare's member sets, or a layout of at most
+    SPFH_LANE_BLOCKS_PER_SM blocks per SM (``sms`` of them), run the lane
+    kernel on slices of 32 queries, 8 warps each, so that the card fills
+    (the sparse layouts chip_smoke.py runs, lanes / a thread a query: 520
+    blocks of 256 0.0568 / 0.1286 ms, 4,606 0.1985 / 0.2250, 192 0.0352
+    / 0.1544); a larger layout runs one CTA per block, a thread a
+    query."""
+    if sparse or nblocks <= SPFH_LANE_BLOCKS_PER_SM * sms:
+        return block // 32, 8, True
+    return 1, block // 32, False
+
+
+@functools.lru_cache(maxsize=None)
+def _thresh_arg():
+    """The 20 thresholds as a host array the C entry point copies into the
+    launch's arguments; built once per process."""
+    arr = (ctypes.c_float * 20)(*THRESH.tolist())
+    return arr, ctypes.cast(arr, ctypes.c_void_p).value
+
+
+def spfh_sweep(q8n, packed10, lo, ln, r2, block, sub=None, sparse=False):
     """K3: f32[40, Mp] — rows 0-32 the L1-normalised SPFH, row 33 the
     neighbour count.
 
     q8n f32[8, Mp] (rows 0-2 centred xyz, 3 validity, 4-6 normal),
     packed10 f32[10, Mp] (centred xyz, b = p×n, n, a = p·n), lo/ln
-    i32[Mp/block, 3]. CUDA tensors launch the kernel; CPU tensors take the
-    plain version."""
+    i32[Mp/block, 3]. ``sparse`` as in :func:`moments_sweep`. CUDA tensors
+    launch the kernel; CPU tensors take the plain version."""
     del sub
     _check("spfh_sweep", q8n, packed10, lo, ln, block, 10)
     if not launches_kernel(q8n, packed10, lo, ln):
-        return spfh_sweep_plain(q8n, packed10, lo, ln, r2, block)
+        return spfh_sweep_plain(q8n, packed10, lo, ln, r2, block, sparse)
     out = torch.empty((40, q8n.shape[1]), dtype=torch.float32,
                       device=q8n.device)
-    host_thresh = (ctypes.c_float * 20)(*THRESH.tolist())
-    _launch("tpu3d_spfh_sweep", q8n, packed10, lo, ln, r2, block, out,
-            ctypes.cast(host_thresh, ctypes.c_void_p).value)
+    plan = spfh_plan(block, lo.shape[0], sparse, _sms(q8n.device))
+    _launch("tpu3d_spfh_sweep", q8n, packed10, lo, ln, block, plan, r2, out,
+            _thresh_arg()[1])
     build.count_launch(spfh_sweep)
     return out
 
@@ -302,7 +398,7 @@ def fpfh_sweep_plain(q8, packed36, lo, ln, r2, block, blocks=None):
             contrib = (own[:, None, j0:j0 + _COLS] & (d2 <= r2)
                        & (d2 >= 1e-16))
             w = torch.where(contrib,
-                            1.0 / torch.sqrt(torch.clamp_min(d2, 1e-24)), 0.0)
+                            1.0 / sqrt_rn(torch.clamp_min(d2, 1e-24)), 0.0)
             for j in range(w.shape[2]):
                 acc += w[None, :, :, j] * cand[3:36, :, j0 + j, None]
     out = torch.zeros((mp, 36), dtype=torch.float32, device=q8.device)
@@ -354,9 +450,8 @@ def fpfh_sweep(q8, packed36, lo, ln, r2, block, sub=None, blocks=None):
         blocks = blocks.to(q8.device, torch.int32).contiguous()
         out = torch.zeros((mp, 36), dtype=torch.float32, device=q8.device)
         nblocks = blocks.shape[0]
-    slices, warps = fpfh_plan(
-        block, nblocks, blocks is not None,
-        torch.cuda.get_device_properties(q8.device).multi_processor_count)
+    slices, warps = fpfh_plan(block, nblocks, blocks is not None,
+                              _sms(q8.device))
     fins = [x.contiguous() for x in (q8, packed36)]
     if any(x.dtype != torch.float32 for x in fins):
         raise TypeError("tpu3d_fpfh_sweep takes float32 planes")

@@ -13,10 +13,10 @@ Dense mode (``nq=None``) returns (cloud with normals, FPFH) in original row
 order. Sparse mode computes descriptors only for ``nq`` query blocks in
 evenly strided contiguous runs: sweep C runs on those blocks, sweep B on
 them and the blocks their windows reach, sweep A on that set and the
-blocks its windows reach; every other block's window lengths are zeroed,
-which the window walk skips, and sweep C launches on the query blocks
-alone. Each retained descriptor equals the dense value at the same
-``block``.
+blocks its windows reach; every other block's window lengths are zeroed.
+Sweeps A and B launch on the blocks with a live window, found on the
+device, and sweep C on the query blocks alone. Each retained descriptor
+equals the dense value at the same ``block``.
 
 The neighbourhoods are radius-exact (every point within r), where the
 reference caps them at 100 (registration.cpp:87); the gather route
@@ -181,10 +181,11 @@ def _pallas_prepare(cloud: PointCloud, r: float, r2: float, block: int,
     q8 = moments_operands(al)
     # Sparse mode: rows outside the A-set get a zero-covariance
     # eigenvector — finite, and never read (sweep B's windows only reach
-    # A-set rows).
-    nrm8 = moments_sweep(q8, pts_t, lo, len_a, r2, block)
+    # A-set rows). Sweeps A and B then launch on the live blocks alone.
+    sparse = nq is not None
+    nrm8 = moments_sweep(q8, pts_t, lo, len_a, r2, block, sparse=sparse)
     q8n, packed_b = spfh_operands(al, nrm8)
-    spfh40 = spfh_sweep(q8n, packed_b, lo, len_b, r2, block)
+    spfh40 = spfh_sweep(q8n, packed_b, lo, len_b, r2, block, sparse=sparse)
     spfh_planes = spfh40[:33]
     wsum = fpfh_sweep(q8, fpfh_operands(al, spfh40), lo, len_c, r2,
                       block, blocks=blocks)[:, :33]

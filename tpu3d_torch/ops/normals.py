@@ -54,6 +54,21 @@ def smallest_eigvec_3x3(A: torch.Tensor) -> torch.Tensor:
     return torch.where(vnorm > 1e-20, v / torch.clamp_min(vnorm, 1e-30), ez)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """√x rounded once, as the kernels' ``__fsqrt_rn``: CUDA's float32
+    square root is; the CPU's is not always, so there it goes through
+    float64 (53 ≥ 2·24 + 2 bits: rounding twice rounds as once)."""
+    return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).float()
+
+
+def div_rn(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c rounded once: CUDA divides by a host scalar through its
+    reciprocal, so there the divisor goes to the device."""
+    if x.is_cuda:
+        return x / torch.full((), c, dtype=x.dtype, device=x.device)
+    return x / c
+
+
 def smallest_eigvec_3x3_planes_newton(a00, a01, a02, a11, a12, a22,
                                       iters: int = 12):
     """Trig-free smallest eigenvector of symmetric 3×3 matrices given as six
@@ -64,7 +79,7 @@ def smallest_eigvec_3x3_planes_newton(a00, a01, a02, a11, a12, a22,
     steps; then the spectral projector with λ₂+λ₃ and λ₂λ₃ from the traces,
     and its column of largest norm (e_z when it vanishes). Sweep A's CUDA
     epilogue (``csrc/features.cu``) repeats these operations in this
-    order, one rounding each."""
+    order, one rounding each (``sqrt_rn``, ``div_rn``)."""
     scale = a00.abs()
     for c in (a01, a02, a11, a12, a22):
         scale = torch.maximum(scale, c.abs())
@@ -72,11 +87,11 @@ def smallest_eigvec_3x3_planes_newton(a00, a01, a02, a11, a12, a22,
     a00, a01, a02 = a00 / scale, a01 / scale, a02 / scale
     a11, a12, a22 = a11 / scale, a12 / scale, a22 / scale
 
-    q = (a00 + a11 + a22) / 3.0
+    q = div_rn(a00 + a11 + a22, 3.0)
     p1 = a01 * a01 + a02 * a02 + a12 * a12
     d00, d11, d22 = a00 - q, a11 - q, a22 - q
     p2 = d00 * d00 + d11 * d11 + d22 * d22 + 2.0 * p1
-    p = torch.sqrt(torch.clamp_min(p2 / 6.0, 1e-30))
+    p = sqrt_rn(torch.clamp_min(div_rn(p2, 6.0), 1e-30))
     inv_p = 1.0 / p
     b00, b11, b22 = d00 * inv_p, d11 * inv_p, d22 * inv_p
     b01, b02, b12 = a01 * inv_p, a02 * inv_p, a12 * inv_p
@@ -98,7 +113,7 @@ def smallest_eigvec_3x3_planes_newton(a00, a01, a02, a11, a12, a22,
         a00 * a00 + a11 * a11 + a22 * a22
         + 2.0 * (a01 * a01 + a02 * a02 + a12 * a12)
     )
-    e2 = (9.0 * q * q - tra2) / 2.0
+    e2 = div_rn(9.0 * q * q - tra2, 2.0)
     t = e2 - lam1 * s
 
     P00 = a00 * a00 + a01 * a01 + a02 * a02 - s * a00 + t
@@ -116,7 +131,7 @@ def smallest_eigvec_3x3_planes_newton(a00, a01, a02, a11, a12, a22,
     vx = torch.where(m0, P00, torch.where(m1, P01, P02))
     vy = torch.where(m0, P01, torch.where(m1, P11, P12))
     vz = torch.where(m0, P02, torch.where(m1, P12, P22))
-    vn = torch.sqrt(vx * vx + vy * vy + vz * vz)
+    vn = sqrt_rn(vx * vx + vy * vy + vz * vz)
     ok = vn > 1e-20
     inv = 1.0 / torch.clamp_min(vn, 1e-30)
     return (torch.where(ok, vx * inv, 0.0), torch.where(ok, vy * inv, 0.0),
