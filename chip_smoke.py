@@ -46,7 +46,8 @@ Phases, each fatal on failure:
      a. K9 (the bilateral filter) against its plain version on the bin
         frame (``models/fixtures.bin_frame``) masked to one instance, at
         r = 4 (sigma_s 2.0) and r = 5 (sigma_s 3.0), and on the whole
-        frame: equal zero sets, max abs error <= 1e-6 m;
+        frame: bit for bit, with each frame's live CTAs (a centre above
+        zero) and live warps, and its device ms on an all-zero frame;
      b. the CLI demo: ``tpu3d_torch.__main__.main`` on a copy of
         config/pipeline_config.yaml with ``bilateral_filter: true`` and
         ``visualization: "none"`` (the procedural scene, voxel 1 mm,
@@ -79,7 +80,10 @@ Phases, each fatal on failure:
         equal slab_top1's on its non-overflowed blocks; K8 against its
         plain version bit for bit (d² and the index on every row) on the
         scene's window tables and on queries jittered by 1 mm, with the
-        window rows per block;
+        window rows per block; every launch of its plan (CTAs a block and
+        queries a thread, ``nn_walk_plan``) forced on both, on the
+        self-join's first 96, 264, 660 and 1,024 blocks and on the
+        self-join in blocks of 128 (``plan_sides``);
      b. the full 1M pair (``make_pair(1 << 20, seed=7, voxel=0.001)``):
         the target's dense fused prepare at r = 5 mm, ICP index and K5
         target operand (``ransac.with_target_operand``), then
@@ -101,16 +105,18 @@ Phases, each fatal on failure:
   Kernel and plain times are CUDA events, 2 warm runs, median of 5
   (slab_top1 and K8's plain version: 1 warm run, median of 3); beside
   them ``device_ms``, the device time of one call (10 calls queued behind
-  a device-side sleep, between two CUDA events), for K2-K9. K2-K4, K8
+  a device-side sleep, between two CUDA events), for K2-K9 and each probe
+  function and its PyTorch call (``library_device_ms``). K2-K4, K8
   and K9 are held bit for bit (K3 on all 40 rows), K7's n_corr and
   matches too. K7 also reports one ICP iteration with its readback
   (``iteration_ms``). Each side of every launch-plan threshold is forced
-  (through ``moments_plan``, ``spfh_plan``, ``fpfh_plan``), held bit for
-  bit to the plan's own result, and timed (``device_ms_<side>``), beside
-  the side the plan picks (``plan``): K2 one CTA a block or two
-  (``block``, ``halves``) and K3 a thread a query or its lane kernel
-  (``threads``, ``lanes``) on every layout, K4 its two kernels on each
-  dense layout.
+  (through ``moments_plan``, ``spfh_plan``, ``fpfh_plan``,
+  ``nn_walk_plan``), held bit for bit to the plan's
+  own result, and timed (``device_ms_<side>``), beside the side the plan
+  picks (``plan``): K2 one CTA a block or two (``block``, ``halves``) and
+  K3 a thread a query or its lane kernel (``threads``, ``lanes``) on
+  every layout, K4 its two kernels on each dense layout, K8 ``s<slices>
+  q<queries a thread>``.
   ``bound_ms`` is the larger of this run's operations over 67 TFLOP/s
   (fp32 without tensor cores) and its bytes (each input read once, each
   output written once) over 3.35 TB/s, an H100 SXM's peaks; the window
@@ -170,7 +176,7 @@ KERNEL_FUNCTIONS = {
     "icp_p2plane_stats": ["icp_stats_kernel"],
     "icp_matches": ["icp_stats_kernel"],
     "bilateral_filter": ["bilateral_kernel"],
-    "nn_walk_top1": ["nn_walk_top1_kernel"],
+    "nn_walk_top1": ["nn_walk_top1_kernel", "nn_walk_order_kernel"],
     "atan2": ["unary_kernel"], "atan": ["unary_kernel"],
     "acos": ["unary_kernel"], "cos": ["unary_kernel"],
     "argmin": ["argmin_kernel"], "cumsum": ["cumsum_kernel"],
@@ -1189,7 +1195,23 @@ def k9_phase(torch, depth, depth_m, sigma_s, sfx, entry):
         f"sets equal {zeros_equal}, kernel {entry['ms' + sfx]:.4f} ms, plain "
         f"{entry['plain_ms' + sfx]:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
         f"expf floor {sfu_ms:.5f} ms")
-    check(zeros_equal and err <= 1e-6, f"K9{sfx} disagrees: {err}")
+    check(zeros_equal and torch.equal(ko, po),
+          f"K9{sfx} differs from its plain version: {err}")
+    # The kernel's occupancy on this frame: its CTAs cover 32 x 16 pixels
+    # (a warp 32 x 2); a CTA with a centre above zero stages its halo, a
+    # warp with one runs the taps. Resident on the card's SMs at once.
+    live = torch.nn.functional.pad(depth_m > 0, (0, (-w) % 32, 0, (-h) % 16))
+    warps = live.reshape(-1, 2, live.shape[1] // 32, 32).any(3).any(1)
+    ctas = warps.reshape(-1, 8, warps.shape[1]).any(1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    entry.update({
+        f"ctas{sfx}": ctas.numel(), f"live_ctas{sfx}": int(ctas.sum()),
+        f"live_warps{sfx}": int(warps.sum()),
+        f"resident_warps_per_sm{sfx}": 8 * int(ctas.sum()) / sms,
+    })
+    log(f"K9{sfx}: {entry['live_ctas' + sfx]} of {ctas.numel()} CTAs live, "
+        f"{entry['live_warps' + sfx]} warps in the taps, "
+        f"{entry['resident_warps_per_sm' + sfx]:.1f} warps an SM")
 
 
 def launch_counts(counters):
@@ -1518,6 +1540,14 @@ def pipeline_phase(torch, np, counters, k9, entries):
     k9_phase(torch, depth, masked, 3.0, "_r5", k9)
     k9_phase(torch, depth, depth.depth_preprocess(raw, None, 10000.0), 2.0,
              "_full_frame", k9)
+    # The floor of a launch: a frame with no centre above zero, where
+    # every CTA writes zeros without staging a halo.
+    zero = torch.zeros_like(masked)
+    check(torch.equal(depth.bilateral_filter(zero, 2.0, 0.05), zero),
+          "K9 on an all-zero frame is not zero")
+    k9["device_ms_zero_frame"] = per_call_device_ms(
+        torch, lambda: depth.bilateral_filter(zero, 2.0, 0.05))
+    log(f"K9 all-zero frame: device {k9['device_ms_zero_frame']:.4f} ms")
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_demo(torch, counters, tmp)
         route = bin_frame_route(torch, np, counters, tmp, frame, K,
@@ -1533,10 +1563,53 @@ def pipeline_phase(torch, np, counters, k9, entries):
 # --------------------------------------------------------------------------
 
 
+def walk_sides(block):
+    """Every launch K8's plan can take at ``block``: {label: (slices,
+    per)}, a multiple of 32 threads a CTA."""
+    return {f"s{s}q{p}": (s, p) for s in (1, 2, 4) for p in (1, 2, 4)
+            if (block // (s * p)) % 32 == 0}
+
+
+def force_walk_plans(torch, nn_walk, q4, packed, lo, ln, r2, block, sub,
+                     label, entry, plain=False):
+    """K8 under every launch its plan can take (``walk_sides``), forced
+    through ``nn_walk.nn_walk_plan`` on the window tables given: each bit
+    for bit equal to the plan's own launch (``plain``: which is held to
+    the plain version first), and each one's device ms per call, the data
+    behind the plan's thresholds; under entry["plan_sides"][label]."""
+    plan = nn_walk.nn_walk_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = plan(block, lo.shape[0], sms)
+    ref = nn_walk.top1_walk(q4, packed, lo, ln, r2, block, sub)
+    if plain:
+        pd, pi = nn_walk.top1_walk_plain(q4, packed, lo, ln, r2, block)
+        check(torch.equal(ref[0], pd) and torch.equal(ref[1], pi),
+              f"K8 {label} differs from its plain version")
+    sides = walk_sides(block)
+    row = {"block": block, "blocks": lo.shape[0],
+           "plan": [k for k, v in sides.items() if v == chosen][0]}
+    try:
+        for side, launch in sides.items():
+            nn_walk.nn_walk_plan = lambda *a, launch=launch: launch
+            d2, idx = nn_walk.top1_walk(q4, packed, lo, ln, r2, block, sub)
+            check(torch.equal(d2, ref[0]) and torch.equal(idx, ref[1]),
+                  f"K8 {label}: the {side} launch differs")
+            row[f"device_ms_{side}"] = per_call_device_ms(
+                torch, lambda: nn_walk.top1_walk(q4, packed, lo, ln, r2,
+                                                 block, sub))
+    finally:
+        nn_walk.nn_walk_plan = plan
+    entry.setdefault("plan_sides", {})[label] = row
+    log(f"K8 {label}: {row['blocks']} blocks of {block}, plan {row['plan']}; "
+        "device " + ", ".join(f"{k} {row[f'device_ms_{k}']:.4f}"
+                              for k in sides) + " ms")
+
+
 def walk_phase(torch, nn_walk, q4, packed, lo, ln, r2, block, sub, sfx,
-               entry, timed):
+               entry):
     """K8 against its plain version on one set of window tables: d² and
-    the index bit for bit on every row (rows without a match included)."""
+    the index bit for bit on every row (rows without a match included),
+    and its times."""
     kd, ki = nn_walk.top1_walk(q4, packed, lo, ln, r2, block, sub)
     pd, pi = nn_walk.top1_walk_plain(q4, packed, lo, ln, r2, block)
     torch.cuda.synchronize()
@@ -1561,8 +1634,6 @@ def walk_phase(torch, nn_walk, q4, packed, lo, ln, r2, block, sub, sfx,
         f"window_rows_max{sfx}": int(rows.max()),
         f"longest_window{sfx}": int(ln.max()),
     })
-    if not timed:
-        return
     # ~9 operations per (query, window row) pair; bytes: the query planes,
     # the packed planes' covered columns, the window tables, d² and idx.
     b_ms, b_by = bound(9.0 * pairs, 4 * (
@@ -1638,7 +1709,7 @@ def scene_nn(torch, np, dev, n, k8):
     q4, lo, ln, _ = nn_walk.walk_operands(wt, raw, mask, radius, block,
                                           k_windows)
     walk_phase(torch, nn_walk, q4, wt.packed, lo, ln, r2, block, sub, "",
-               k8, True)
+               k8)
     # Queries off the points (1 mm jitter): real searches, some with no
     # target within the radius.
     jit = raw + torch.from_numpy(np.random.default_rng(6).normal(
@@ -1646,7 +1717,24 @@ def scene_nn(torch, np, dev, n, k8):
     q4j, loj, lnj, _ = nn_walk.walk_operands(wt, jit, mask, radius, block,
                                              k_windows)
     walk_phase(torch, nn_walk, q4j, wt.packed, loj, lnj, r2, block, sub,
-               "_jittered", k8, False)
+               "_jittered", k8)
+    # The plan's sides: the self-join, its first 96, 264, 660 and 1,024
+    # blocks (fewer blocks than SMs, then 2, 5 and 8 an SM), the jittered
+    # queries, and the self-join in blocks of 128.
+    force_walk_plans(torch, nn_walk, q4, wt.packed, lo, ln, r2, block, sub,
+                     "self_join", k8)
+    for nb in (96, 264, 660, 1024):
+        if nb < lo.shape[0]:
+            force_walk_plans(torch, nn_walk,
+                             q4[:, :nb * block].contiguous(), wt.packed,
+                             lo[:nb].contiguous(), ln[:nb].contiguous(), r2,
+                             block, sub, f"self_join_first_{nb}", k8)
+    force_walk_plans(torch, nn_walk, q4j, wt.packed, loj, lnj, r2, block,
+                     sub, "jittered", k8)
+    q4b, lob, lnb, _ = nn_walk.walk_operands(wt, raw, mask, radius, 128,
+                                             k_windows)
+    force_walk_plans(torch, nn_walk, q4b, wt.packed, lob, lnb, r2, 128, sub,
+                     "self_join_block_128", k8, plain=True)
     return {
         "route": "1M scene, NN", "fixture": f"make_pair({n}, seed=5)",
         "radius": radius, "block": block, "sub": sub,
@@ -1906,6 +1994,8 @@ def probe_phase(torch, dev):
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             # The plain version is the one PyTorch call.
             "library_ms": plain_ms,
+            "device_ms": per_call_device_ms(torch, kern),
+            "library_device_ms": per_call_device_ms(torch, plain),
         })
     return entries
 
@@ -1914,7 +2004,7 @@ def scene_phase(torch, np, dev, args, entries, counters):
     """Phase 6: the 1M-point scene (6a-6c) and the probe (6d). ``entries``
     are the kernels lines' K2-K7 entries, ``counters`` their wrappers, in
     the same order."""
-    k8 = {"name": "nn_walk_top1 (K8, with the K1 walk)", "route": "cuda",
+    k8 = {"name": "nn_walk_top1 (K8)", "route": "cuda",
           "source": "tpu3d_torch/csrc/nn_walk.cu",
           "replaces": "tpu3d/ops/nn_walk.py:140"}
     nn_route = scene_nn(torch, np, dev, args.scene_points, k8)

@@ -59,9 +59,13 @@ def test_signatures_name_every_entry_point():
                  "tpu3d_probe_cumsum", "tpu3d_probe_dot_axis0",
                  "tpu3d_probe_transpose"):
         assert name in build.SIGNATURES, name
-    # q4, packed, lo, len, then qp, m, nb, k, block, sub, r2, d2, idx, stream
+    # q4, packed, lo, len, order, then qp, m, nb, k, block, sub, slices,
+    # per, r2, d2, idx, stream
     assert build.SIGNATURES["tpu3d_nn_walk_top1"] == [
-        build._P] * 4 + [build._I] * 6 + [build._F] + [build._P] * 3
+        build._P] * 5 + [build._I] * 8 + [build._F] + [build._P] * 3
+    # in, out, then h, w, r, inv_s2, inv_r2, stream
+    assert build.SIGNATURES["tpu3d_bilateral_filter"] == [
+        build._P] * 2 + [build._I] * 3 + [build._D, build._F, build._P]
     # The tensor-core routes: qop, top, queries, then q, d, qp, m_tiles,
     # tiles_per_split, splits, then partials, idx, d2, stream; and feat,
     # pq, w, tn, then n, h, rows, slices, thr2, band, then partials,

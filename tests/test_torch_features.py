@@ -15,7 +15,7 @@ from tpu3d.ops.features_pallas import (
 from tpu3d.ops.normals import (
     smallest_eigvec_3x3_planes_newton as jax_newton,
 )
-from tpu3d_torch.ops import features, fused_features
+from tpu3d_torch.ops import features, fused_features, nn_walk
 from tpu3d_torch.ops.normals import smallest_eigvec_3x3_planes_newton
 from tpu3d_torch.types import PointCloud
 from torch_threads import one_torch_thread  # noqa: F401
@@ -248,6 +248,25 @@ def test_k3_launch_plan(block, nblocks, sparse, plan):
     slices, warps, lanes = features.spfh_plan(block, nblocks, sparse, 132)
     assert (slices, warps, lanes) == plan
     assert block // slices == (32 if lanes else warps * 32)
+
+
+@pytest.mark.parametrize("block,nblocks,plan", [
+    (512, 2048, (1, 4)), (512, 660, (1, 4)), (512, 528, (1, 4)),
+    (512, 527, (2, 2)), (512, 264, (2, 2)), (512, 263, (4, 1)),
+    (512, 96, (4, 1)), (512, 5, (4, 1)), (256, 4096, (1, 2)),
+    (256, 528, (1, 2)), (256, 527, (2, 1)), (256, 5, (2, 1)),
+    (128, 8192, (1, 1)), (128, 1024, (1, 1)), (128, 96, (1, 1)),
+    (128, 5, (1, 1)),
+])
+def test_k8_launch_plan(block, nblocks, plan):
+    """K8 (132 SMs here): CTAs of 128 threads; a query block is cut into
+    the fewest slices (1, 2 or 4) that launch WALK_CTAS_PER_SM (4) CTAs an
+    SM, and a thread takes the block's remaining queries (the 1M
+    self-join's 2,048 blocks of 512: one CTA a block, four a thread; its
+    first 96: four CTAs a block, one a thread)."""
+    slices, per = nn_walk.nn_walk_plan(block, nblocks, 132)
+    assert (slices, per) == plan
+    assert block // (slices * per) == 128
 
 
 def test_newton_eigvec_matches_jax(rng):

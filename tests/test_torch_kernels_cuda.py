@@ -7,6 +7,8 @@ installed: ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py``.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -790,10 +792,29 @@ def test_sparse_register_pair_on_card(dev):
     assert all(k.launches > b for k, b in zip(kernels, before))
 
 
-@pytest.mark.parametrize("sigma_s,radius", [(2.0, 4), (3.0, 5)])
+# sigma_s for each radius K9 takes, r = min(int(2 sigma_s + 0.5), 5).
+_BF_SIGMAS = [(0.1, 0), (0.5, 1), (1.0, 2), (1.5, 3), (2.0, 4), (3.0, 5)]
+
+
+def _hold_k9(dev, d, sigma_s):
+    """K9 on frame ``d``: bit for bit equal to the plain version run on
+    the card (the same expf), one launch."""
+    pd = depth.bilateral_filter_plain(d.to(dev), sigma_s, 0.05)
+    before = depth.bilateral_filter.launches
+    kd = depth.bilateral_filter(d.to(dev), sigma_s, 0.05)
+    torch.cuda.synchronize()
+    assert depth.bilateral_filter.launches == before + 1
+    assert kd.is_cuda and kd.shape == d.shape
+    assert torch.equal(kd, pd)
+    return kd
+
+
+@pytest.mark.parametrize("sigma_s,radius", _BF_SIGMAS)
 def test_bilateral_kernel_matches_plain(dev, sigma_s, radius):
     """K9 on a frame with holes and a zero border strip, odd sizes so the
-    32 x 8 blocks meet the frame's edge part way."""
+    CTAs meet the frame's edge part way, at every radius: bit for bit
+    equal to the plain version on the card, and within 1e-6 of the CPU's
+    (another expf)."""
     g = torch.Generator().manual_seed(radius)
     d = 0.5 + torch.rand(203, 301, generator=g)
     d[torch.rand(203, 301, generator=g) < 0.2] = 0.0
@@ -801,13 +822,34 @@ def test_bilateral_kernel_matches_plain(dev, sigma_s, radius):
     d[40:60, 50:90] += 0.3  # a step well above sigma_range
     assert depth.bf_radius(sigma_s) == radius
     pd = depth.bilateral_filter(d, sigma_s, 0.05)
-    before = depth.bilateral_filter.launches
-    kd = depth.bilateral_filter(d.to(dev), sigma_s, 0.05)
-    torch.cuda.synchronize()
-    assert depth.bilateral_filter.launches == before + 1
-    assert kd.is_cuda and kd.shape == d.shape
+    kd = _hold_k9(dev, d, sigma_s)
     assert torch.equal(kd.cpu() == 0, pd == 0)
     assert float((kd.cpu() - pd).abs().max()) <= 1e-6
+
+
+def _bf_frames():
+    """Frames whose centres are mostly zero (odd sizes): all zero; zero
+    over a region wider than any CTA's pixels, so that CTAs inside it have
+    only zero centres but halos that reach depth; one masked instance."""
+    g = torch.Generator().manual_seed(7)
+    full = 0.5 + torch.rand(181, 333, generator=g)
+    full[torch.rand(181, 333, generator=g) < 0.1] = 0.0
+    hole = full.clone()
+    hole[16:112, 64:224] = 0.0
+    inst = torch.zeros_like(full)
+    inst[37:121, 45:170] = full[37:121, 45:170]
+    return {"zero": torch.zeros(181, 333), "hole": hole, "instance": inst}
+
+
+@pytest.mark.parametrize("kind", ["zero", "hole", "instance"])
+@pytest.mark.parametrize("sigma_s,radius", _BF_SIGMAS)
+def test_bilateral_kernel_zero_centres(dev, kind, sigma_s, radius):
+    """K9 where most centres are zero, the work its CTAs and threads
+    retire: bit for bit equal to the plain version, zero exactly where the
+    centre is."""
+    d = _bf_frames()[kind]
+    kd = _hold_k9(dev, d, sigma_s)
+    assert torch.equal(kd.cpu() == 0, d <= 0)
 
 
 def test_bilateral_kernel_rejects_double_and_batch(dev):
@@ -874,23 +916,90 @@ def _walk_inputs(block, k_windows, seed):
     return q4, wt.packed, lo, ln, float(np.float32(0.01) ** 2)
 
 
+def _k8_plans(block):
+    """Every launch K8's plan can take at ``block``: (slices, per) with a
+    multiple of 32 threads a CTA."""
+    return [(s, p) for s in (1, 2, 4) for p in (1, 2, 4)
+            if (block // (s * p)) % 32 == 0]
+
+
+def _hold_k8(monkeypatch, dev, q4, packed, lo, ln, r2, block, subs):
+    """K8 under every launch its plan can take and each staged tile of
+    ``subs``: d2 and the index equal the plain version's (on the CPU) bit
+    for bit on every row, one launch each; returns the plain result."""
+    pd, pi = nn_walk.top1_walk(q4, packed, lo, ln, r2, block)
+    on_card = [a.to(dev) for a in (q4, packed, lo, ln)]
+    for plan, sub in itertools.product(_k8_plans(block), subs):
+        monkeypatch.setattr(nn_walk, "nn_walk_plan", lambda *a, p=plan: p)
+        before = nn_walk.top1_walk.launches
+        kd, ki = nn_walk.top1_walk(*on_card, r2, block, sub=sub)
+        torch.cuda.synchronize()
+        assert nn_walk.top1_walk.launches == before + 1
+        assert ki.dtype == torch.int32 and kd.dtype == torch.float32
+        assert torch.equal(ki.cpu(), pi), (plan, sub)
+        assert torch.equal(kd.cpu(), pd), (plan, sub)
+    return pd, pi
+
+
 @pytest.mark.parametrize("block", [128, 256, 512])
-@pytest.mark.parametrize("k_windows", [3, 8, 10])
-def test_nn_walk_kernel_matches_plain(dev, block, k_windows):
-    """K8 equals its plain version bit for bit: d2, and the index on every
-    row, rows without a match included."""
+@pytest.mark.parametrize("k_windows", list(range(1, 17)))
+def test_nn_walk_kernel_matches_plain(dev, monkeypatch, block, k_windows):
+    """K8 equals its plain version bit for bit under every launch its plan
+    can take: d2, and the index on every row, rows without a match
+    included; K from 1 to 16, each block size, one staged tile a case."""
     args = _walk_inputs(block, k_windows, block + k_windows)
-    pd, pi = nn_walk.top1_walk(*args, block)
-    before = nn_walk.top1_walk.launches
-    kd, ki = nn_walk.top1_walk(*(a.to(dev) for a in args[:4]), args[4],
-                               block, sub=block)
-    torch.cuda.synchronize()
-    assert nn_walk.top1_walk.launches == before + 1
-    assert ki.dtype == torch.int32 and kd.dtype == torch.float32
+    pd, _ = _hold_k8(monkeypatch, dev, *args, block,
+                     [(128, 256, 512)[k_windows % 3]])
     matched = pd < 1e29
     assert 0 < int(matched.sum()) < matched.numel()
-    assert torch.equal(ki.cpu(), pi)
-    assert torch.equal(kd.cpu(), pd)
+
+
+def _walk_lattice(block, seed):
+    """K8 operands of exact ties: coordinates on a 1/64 grid in a small
+    cube, so many rows lie at the same d2 from a query (every difference,
+    square and sum is exact in fp32), and payloads a permutation, so that
+    each tie picks a different index. Five query blocks of windows:
+    0. five windows, one empty, crossing tile boundaries, ending mid-group,
+       the third repeating rows of the first (ties across windows);
+    1. every window empty;
+    2. every query invalid, windows not empty;
+    3. one window ending mid-tile, the rest empty;
+    4. windows of 1, 7, 8 and 9 rows, one empty.
+    The target repeats rows within a tile (rows 8-15 equal row 8) and
+    across tiles (row 700 equals row 100)."""
+    rng = np.random.default_rng(seed)
+    m, nb, k = 3000, 5, 5
+    packed = np.empty((4, m), np.float32)
+    packed[:3] = rng.integers(-6, 7, (3, m)) / 64
+    packed[:3, 8:16] = packed[:3, 8:9]
+    packed[:3, 700] = packed[:3, 100]
+    packed[3] = rng.permutation(m)
+    q4 = np.empty((4, nb * block), np.float32)
+    q4[:3] = rng.integers(-6, 7, (3, nb * block)) / 64
+    q4[3] = rng.uniform(size=nb * block) > 0.1
+    q4[3, 2 * block:3 * block] = 0.0
+    lo = np.array([[0, 600, 0, 1500, 2990], [0] * 5, [200, 900, 0, 0, 0],
+                   [37, 0, 0, 0, 0], [3, 10, 20, 40, 60]], np.int32)
+    ln = np.array([[517, 0, 300, 1309, 10], [0] * 5, [500, 700, 0, 0, 0],
+                   [301, 0, 0, 0, 0], [1, 7, 0, 8, 9]], np.int32)
+    r2 = float(np.float32(3 / 64) ** 2)
+    return (torch.from_numpy(q4), torch.from_numpy(packed),
+            torch.from_numpy(lo), torch.from_numpy(ln), r2)
+
+
+@pytest.mark.parametrize("block", [128, 256, 512])
+def test_nn_walk_kernel_ties_and_edges(dev, monkeypatch, block):
+    """K8 on exact ties inside one tile, across tiles and across windows,
+    empty windows, an all-empty block, an all-invalid block, and windows
+    that end mid-tile and mid-group: bit for bit equal to the plain
+    version under every launch and every staged tile."""
+    q4, packed, lo, ln, r2 = _walk_lattice(block, block)
+    pd, pi = _hold_k8(monkeypatch, dev, q4, packed, lo, ln, r2, block,
+                      (128, 256, 512))
+    rows = pi.reshape(5, block)
+    assert torch.equal(rows[1], torch.zeros(block, dtype=torch.int32))
+    assert bool((pd.reshape(5, block)[2] == 1e30).all())
+    assert int((pd < 1e29).sum()) > block  # matches, at exact ties
 
 
 def test_nn_walk_kernel_rejects_bad_inputs(dev):

@@ -50,8 +50,7 @@ SIGNATURES = {
     "tpu3d_spfh_sweep": [_P] * 4 + [_I] * 6 + [_F, _P, _P, _P],
     "tpu3d_fpfh_sweep": [_P] * 5 + [_I] * 5 + [_F, _P, _P],
     "tpu3d_bilateral_filter": [_P, _P, _I, _I, _I, _D, _F, _P],
-    "tpu3d_nn_walk_top1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
-                           _P, _P],
+    "tpu3d_nn_walk_top1": [_P] * 5 + [_I] * 8 + [_F, _P, _P, _P],
     "tpu3d_probe_unary": [_P, _I, _I, _P, _P],
     "tpu3d_probe_argmin": [_P, _I, _I, _P, _P],
     "tpu3d_probe_cumsum": [_P, _I, _I, _P, _P],

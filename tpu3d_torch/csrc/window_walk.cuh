@@ -1,21 +1,18 @@
-// K1: the multi-window walk of the slab2 top-1 walk (K8, k_windows per
-// block), and the exactly rounded arithmetic and cp.async helpers that the
-// fused-prepare sweeps (K2-K4, which walk their three windows per block
-// with their own double-buffered tiles) and K7 share with it.
-//
-// Replaces tpu3d/ops/pallas_walk.py: window_walk / window_walk_vmem. One
-// CUDA block serves one query block of blockDim.x padded rows, one thread
-// per query. For each of the block's K candidate windows [lo, lo + len) of
-// the packed plane-major (R, m) operand (tables lo/len of shape (nb, K)),
-// in window order, the block stages tiles of kTile rows into shared memory
-// with coalesced loads (neighbouring threads read neighbouring columns of
-// one plane), and every thread then hands the tile's rows to `consume(j)`
-// in ascending order. A zero-length window costs nothing, which is how the
-// sparse prepare prunes blocks. The order of the walk is fixed, so every
-// sum a sweep takes over it is deterministic.
-//
-// The TPU's sub-aligned tile grid and its DMA pipeline were Mosaic rules;
-// here a tile starts wherever the window does.
+// K1: what the window walks share. Replaces tpu3d/ops/pallas_walk.py:
+// window_walk / window_walk_vmem, the skeleton through which one Pallas
+// program per query block walks that block's K candidate windows
+// [lo, lo + len) of a packed plane-major operand in sub-wide tiles. On the
+// card there is no generic walk: each kernel walks its windows with its
+// own double-buffered tiles, shaped for its work (K2-K4 their three
+// windows a block in csrc/features.cu, K7 one window a query block in
+// csrc/icp_stats.cu, K8 up to 16 windows a block in csrc/nn_walk.cu), in
+// window order and ascending row order, so every sum a sweep takes over a
+// walk is deterministic, and a zero-length window costs nothing (which is
+// how the sparse prepare prunes blocks). What they share is here: the
+// exactly rounded fp32 arithmetic, the squared distance, and the cp.async
+// copy, commit and wait that overlap a tile's copy with the scan of the
+// previous one. The TPU's sub-aligned tile grid and its DMA pipeline were
+// Mosaic rules; here a tile starts wherever the window does.
 
 #pragma once
 
@@ -37,34 +34,6 @@ __device__ __forceinline__ float dist2(float tx, float ty, float tz, float qx,
   const float dy = sub_rn(ty, qy);
   const float dz = sub_rn(tz, qz);
   return add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
-}
-
-template <int K, int R, int kTile, typename Consume>
-__device__ __forceinline__ void window_walk(const float* __restrict__ packed,
-                                            int m, const int* __restrict__ lo,
-                                            const int* __restrict__ len, int b,
-                                            float (*tile)[kTile],
-                                            Consume&& consume) {
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-#pragma unroll 1
-  for (int k = 0; k < K; ++k) {
-    const int lo_k = lo[b * K + k];
-    const int hi_k = lo_k + len[b * K + k];
-#pragma unroll 1
-    for (int start = lo_k; start < hi_k; start += kTile) {
-      const int nt = min(kTile, hi_k - start);
-      __syncthreads();  // the previous tile is consumed
-      for (int i = tid; i < R * kTile; i += nthr) {
-        const int r = i / kTile;
-        const int c = i - r * kTile;
-        if (c < nt) tile[r][c] = packed[(size_t)r * m + start + c];
-      }
-      __syncthreads();
-#pragma unroll 1
-      for (int j = 0; j < nt; ++j) consume(j);
-    }
-  }
 }
 
 // cp.async of one float from device memory into shared memory (any

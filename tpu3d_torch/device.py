@@ -7,6 +7,8 @@ tensor takes the kernel's plain PyTorch version, anything else raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -21,3 +23,15 @@ def launches_kernel(*tensors: torch.Tensor) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"unsupported device mix {sorted(kinds)}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of the CUDA ``device`` (the launch plans size grids by
+    it)."""
+    return _sm_count_of(torch.cuda.current_device() if device.index is None
+                        else device.index)

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from tpu3d_torch import build
-from tpu3d_torch.device import launches_kernel
+from tpu3d_torch.device import launches_kernel, sm_count
 from tpu3d_torch.ops.normals import (
     smallest_eigvec_3x3_planes_newton,
     sqrt_rn,
@@ -147,17 +147,6 @@ def _launch(fn_name, q8, packed, lo, ln, block, plan, r2, out, *extra):
     build.check(rc, fn_name)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms_of(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _sms(device: torch.device) -> int:
-    """The SM count of ``device`` (the launch plans size grids by it)."""
-    return _sms_of(torch.cuda.current_device() if device.index is None
-                   else device.index)
-
-
 # --------------------------------------------------------------------------
 # K2: moments → normals
 # --------------------------------------------------------------------------
@@ -249,7 +238,7 @@ def moments_sweep(q8, packed3, lo, ln, r2, block, sub=None, sparse=False):
     if not launches_kernel(q8, packed3, lo, ln):
         return moments_sweep_plain(q8, packed3, lo, ln, r2, block, sparse)
     out = torch.empty((8, q8.shape[1]), dtype=torch.float32, device=q8.device)
-    plan = moments_plan(block, lo.shape[0], sparse, _sms(q8.device))
+    plan = moments_plan(block, lo.shape[0], sparse, sm_count(q8.device))
     _launch("tpu3d_moments_sweep", q8, packed3, lo, ln, block, plan, r2, out)
     build.count_launch(moments_sweep)
     return out
@@ -362,7 +351,7 @@ def spfh_sweep(q8n, packed10, lo, ln, r2, block, sub=None, sparse=False):
         return spfh_sweep_plain(q8n, packed10, lo, ln, r2, block, sparse)
     out = torch.empty((40, q8n.shape[1]), dtype=torch.float32,
                       device=q8n.device)
-    plan = spfh_plan(block, lo.shape[0], sparse, _sms(q8n.device))
+    plan = spfh_plan(block, lo.shape[0], sparse, sm_count(q8n.device))
     _launch("tpu3d_spfh_sweep", q8n, packed10, lo, ln, block, plan, r2, out,
             _thresh_arg()[1])
     build.count_launch(spfh_sweep)
@@ -451,7 +440,7 @@ def fpfh_sweep(q8, packed36, lo, ln, r2, block, sub=None, blocks=None):
         out = torch.zeros((mp, 36), dtype=torch.float32, device=q8.device)
         nblocks = blocks.shape[0]
     slices, warps = fpfh_plan(block, nblocks, blocks is not None,
-                              _sms(q8.device))
+                              sm_count(q8.device))
     fins = [x.contiguous() for x in (q8, packed36)]
     if any(x.dtype != torch.float32 for x in fins):
         raise TypeError("tpu3d_fpfh_sweep takes float32 planes")

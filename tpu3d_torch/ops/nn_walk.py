@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from tpu3d_torch import build
-from tpu3d_torch.device import launches_kernel
+from tpu3d_torch.device import launches_kernel, sm_count
 from tpu3d_torch.ops.slab2 import Slab2Index, block_windows, build_slab2
 
 _BIG = 1e30
@@ -148,29 +148,62 @@ def top1_walk_plain(q4, packed, lo, ln, r2, block):
     return d2.reshape(-1), pay.reshape(-1).to(torch.int32)
 
 
+# K8's launch plan: CTAs of 128 threads, each a slice of 1, 2 or 4 of a
+# query block (``slices``), each thread ``per`` = block / (128 · slices)
+# queries (one staged row serves all of them). A layout takes the fewest
+# slices that still launch WALK_CTAS_PER_SM CTAs an SM: four queries a
+# thread win where the card is full, slices spread few blocks over more
+# SMs. Device ms per call, the medians of six runs of chip_smoke.py's
+# ``plan_sides`` on an H100 at 700 W (the run PERF.md's section 6 reports;
+# slices 1 / 2 / 4 of blocks of 512, so 4 / 2 / 1 queries a thread): the
+# 1M self-join's 2,048 blocks 0.8443 / 0.9208 / 0.9991, its first 1,024
+# 0.5188 / 0.5199 / 0.5098, 660 0.3421 / 0.3572 / 0.3428, 264 0.2208 /
+# 0.1656 / 0.1637, 96 0.1850 / 0.0982 / 0.0840; the jittered queries'
+# 2,048 1.1591 / 1.2567 / 1.3673. In blocks of 128 (8,192 of them) a
+# query a thread at 128 threads took 0.3237, at 64 threads 0.3302 (two a
+# thread) and 0.3718 (two slices). The kernel launches the blocks with the
+# most window rows first; in row order the same launches took 1.0732
+# (2,048 blocks of 512), 0.3900 (8,192 of 128) and 0.0901 (96 of 512).
+WALK_CTAS_PER_SM = 4
+WALK_THREADS = 128
+
+
+def nn_walk_plan(block: int, nblocks: int, sms: int) -> tuple[int, int]:
+    """(slices, per) of K8's launch: CTAs per query block and queries per
+    thread, for ``nblocks`` blocks of ``block`` queries on ``sms`` SMs."""
+    slices = 1
+    while (slices < block // WALK_THREADS
+           and nblocks * slices < WALK_CTAS_PER_SM * sms):
+        slices *= 2
+    return slices, block // (WALK_THREADS * slices)
+
+
 def top1_walk(q4, packed, lo, ln, r2, block, sub=512):
     """K8: (d2 f32[Qp], idx i32[Qp]) in key-sorted query order.
 
     q4 f32[4, Qp] (sorted query x, y, z, validity; Qp % block == 0),
     packed f32[4, M] (the WalkTarget's planes), lo/ln i32[Qp/block, K]
     windows, r2 the fp32 squared radius. ``block`` is 128, 256 or 512
-    (one thread per query); ``sub``, rounded down to a multiple of 128 in
-    [128, 512], is the walk's tile of staged rows and does not change
-    results. CUDA tensors launch the kernel; CPU tensors take the plain
-    version."""
+    (the launch, CTAs a block and queries a thread, is ``nn_walk_plan``'s);
+    ``sub``, rounded down to 128, 256 or 512 (at least 128), is the walk's
+    tile of staged rows and does not change results. CUDA tensors launch
+    the kernel; CPU tensors take the plain version."""
     _check(q4, packed, lo, ln, block)
     if not launches_kernel(q4, packed, lo, ln):
         return top1_walk_plain(q4, packed, lo, ln, r2, block)
     if not all(x.is_contiguous() for x in (q4, packed, lo, ln)):
         raise ValueError("top1_walk kernel takes contiguous tensors")
     qp = q4.shape[1]
-    tile = min(512, max(128, sub // 128 * 128))
+    tile = 512 if sub >= 512 else 256 if sub >= 256 else 128
+    slices, per = nn_walk_plan(block, lo.shape[0], sm_count(q4.device))
+    # The CTAs' launch order, which the kernel writes here.
+    order = torch.empty((lo.shape[0],), dtype=torch.int32, device=q4.device)
     d2 = torch.empty((qp,), dtype=torch.float32, device=q4.device)
     idx = torch.empty((qp,), dtype=torch.int32, device=q4.device)
     rc = build.library().tpu3d_nn_walk_top1(
-        q4.data_ptr(), packed.data_ptr(), lo.data_ptr(), ln.data_ptr(), qp,
-        packed.shape[1], lo.shape[0], lo.shape[1], block, tile, float(r2),
-        d2.data_ptr(), idx.data_ptr(),
+        q4.data_ptr(), packed.data_ptr(), lo.data_ptr(), ln.data_ptr(),
+        order.data_ptr(), qp, packed.shape[1], lo.shape[0], lo.shape[1],
+        block, tile, slices, per, float(r2), d2.data_ptr(), idx.data_ptr(),
         torch.cuda.current_stream(q4.device).cuda_stream,
     )
     build.check(rc, "tpu3d_nn_walk_top1")
