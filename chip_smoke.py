@@ -9,7 +9,7 @@ Phases, each fatal on failure:
   2. build the CUDA kernels from tpu3d_torch/csrc (one nvcc per source, all
      started together, sm_90a) and print the build time and the compiler's
      per-kernel resource report (registers and spills go into the kernels
-     line);
+     line); then the host runtime (g++, csrc/host) and its build time;
   3. the reference-parity route at bucket 8,192 (the bench fixture
      ``make_pair(8192, voxel=0.005)``): K5 top-1 NN at D=33 and D=3, K6
      hypothesis scoring (25,600 hypotheses x 2,048 estimate rows, and 32
@@ -71,6 +71,13 @@ Phases, each fatal on failure:
         branch, every kernel launched (K7 by its match-only epilogue),
         all four through the quality gate, and a second run with the
         same poses bit for bit;
+     d. the host runtime (``tpu3d_torch.native``, built by g++ from the
+        port's copy of the C++ source): it builds; the native and numpy
+        PLY readers give equal arrays on the bin frame's reference model
+        (both timed); the native mask resize equals the numpy nearest
+        resize binarised at 10 on the bin masks, halved and doubled, and
+        is timed against the numpy resize and cv2's (where installed); the
+        bin frame's warm runs above read the model natively;
   6. the 1M-point scene of bench.py's extras, at its sizes:
      a. top-1 NN within 2 mm, 1,048,576 x 1,048,576 (``make_pair(1 << 20,
         seed=5)``): ``ops.slab.slab_top1`` on the x-sorted points (block
@@ -101,7 +108,28 @@ Phases, each fatal on failure:
         K2-K4 on the target's and the first source's prepares and K7 on
         that source's ICP, against their plain versions;
      d. the probe (``tpu3d_torch.probe``): each function's kernel against
-        PyTorch on the card within its stated tolerance.
+        PyTorch on the card within its stated tolerance;
+  7. the multiscale entry and the neighbour, ICP and RANSAC options:
+     a. ``tpu3d_torch.register_pair_multiscale`` on phase 4's pair (levels
+        2, scale_step 3: the coarse level at 3 x voxel takes the fused
+        prepare, both levels ICP on normals-only targets whose neighbours
+        come from ``slab_knn`` at k = 30), 100,000 hypotheses: K2-K7 all
+        launched in that run, the quality gate, warm host ms, device busy,
+        peak memory; the fine target's slab_knn timed, its largest
+        window, overflow flag, and every valid row of a padding-free
+        block its own first neighbour;
+     b. bucket 8,192: ``prepare_features`` with neighbor_mode 'brute',
+        'slab' and 'grid', then ``register_prepared``: each through the
+        gate, its prepare ms and its descriptor correspondences' share
+        equal to brute's;
+     c. ``icp_refine`` from one RANSAC pose with nn_mode 'slab' (every
+        source row), 'grid' and 'brute' at bucket 8,192, and 'slab'
+        against 'grid' on phase 4's pair (<= 30 iterations): poses within
+        1e-5 of the slab one (the CPU tests' tolerance), ms per stats
+        pass;
+     d. RANSAC on phase 4's sparse subset with hyp_chunk 16,384 and
+        50,176, early_exit off and sampling 'gather', each refined by ICP
+        through the gate: chunks run and RANSAC ms.
   Kernel and plain times are CUDA events, 2 warm runs, median of 5
   (slab_top1 and K8's plain version: 1 warm run, median of 3); beside
   them ``device_ms``, the device time of one call (10 calls queued behind
@@ -1127,19 +1155,36 @@ def per_call_device_ms(torch, fn, calls=10):
     return start.elapsed_time(end) / calls
 
 
-def device_busy_ms(torch, fn):
-    """Device kernel time summed over one call of ``fn`` (torch.profiler)."""
+def device_profile(torch, fn, top=10):
+    """(device time summed over one call of ``fn``, its ``top`` device
+    entries by ms as [name, ms]) from torch.profiler's key averages.
+
+    Only the device's own rows count (kernels, copies, sets): a host op's
+    row carries the device time of the kernels it launched too, so a sum
+    over every row counts each kernel twice (the log line gives both)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    total = 0.0
+    rows, every_row = [], 0.0
     for ev in prof.key_averages():
-        total += getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-    return total / 1e3
+        ms = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        every_row += ms
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            rows.append((ev.key, ms))
+    total = sum(ms for _, ms in rows)
+    log(f"device profile: {total:.3f} ms on the device's rows, {every_row:.3f}"
+        f" ms over every row")
+    return (total,
+            [[k, ms] for k, ms in sorted(rows, key=lambda r: -r[1])[:top]])
+
+
+def device_busy_ms(torch, fn):
+    """Device kernel time summed over one call of ``fn`` (torch.profiler)."""
+    return device_profile(torch, fn)[0]
 
 
 def bin_masks(np, width, height):
@@ -1519,9 +1564,97 @@ def bin_shapes(torch, np, probe, voxel, entries):
               torch.eye(4, device=pts.device), voxel * 0.4, "_bin", k7)
 
 
+def native_route(np, ply_path, masks, bin_route):
+    """5d: the port's host runtime (g++ at first use): the native and numpy
+    PLY readers equal on the bin frame's reference model, both timed; the
+    native mask resize equal to the numpy nearest resize binarised at 10
+    on the bin masks, halved and doubled, and timed against the numpy and
+    cv2 resizes; the bin frame's warm ms, which read the model natively."""
+    from tpu3d_torch import native
+    from tpu3d_torch.models import ply
+
+    check(native.available(), "the host runtime did not build")
+
+    def timed(fn, reps=3):
+        out = fn()  # warm
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return times, out
+
+    available = native.available
+    native.available = lambda: False  # the numpy reader
+    try:
+        numpy_ms, (pts_np, cols_np) = timed(lambda: ply.load_ply(ply_path))
+    finally:
+        native.available = available
+    native_ms, out = timed(lambda: native.load_ply(ply_path))
+    check(out is not None, "the native parser declined the bin frame's PLY")
+    check(np.array_equal(out[0], pts_np) and out[1] is None
+          and cols_np is None,
+          "the native and numpy PLY readers differ on the bin frame")
+    for mask in masks:
+        h, w = mask.shape
+        for oh, ow in ((h // 2, w // 2), (2 * h, 2 * w)):
+            got = native.resize_mask_nearest_threshold(mask, oh, ow)
+            ys = (np.arange(oh) * h / oh).astype(np.int64)
+            xs = (np.arange(ow) * w / ow).astype(np.int64)
+            want = np.where(mask[ys[:, None], xs[None, :]] > 10, 255,
+                            0).astype(np.uint8)
+            check(got is not None and np.array_equal(got, want),
+                  f"the native mask resize differs at {oh} x {ow}")
+    # The pipeline's resize: a mask at half the frame's size brought up to
+    # the frame, by each path io.segmentation can take (cv2 where it is
+    # installed), median of 20 calls each over the four masks.
+    from tpu3d_torch.io import segmentation
+
+    h, w = masks[0].shape
+    halves = [np.ascontiguousarray(m[::2, ::2]) for m in masks]
+
+    def numpy_resize(m):
+        ys = (np.arange(h) * m.shape[0] / h).astype(np.int64)
+        xs = (np.arange(w) * m.shape[1] / w).astype(np.int64)
+        return m[ys[:, None], xs[None, :]]
+
+    paths = {"native": lambda m: native.resize_mask_nearest_threshold(m, h, w),
+             "numpy": numpy_resize}
+    if segmentation.cv2 is not None:
+        paths["cv2"] = lambda m: segmentation.cv2.resize(
+            m, (w, h), interpolation=segmentation.cv2.INTER_NEAREST)
+    resize_ms = {}
+    for name, fn in paths.items():
+        resize_ms[name] = statistics.median(
+            timed(lambda: [fn(m) for m in halves], reps=20)[0]) / len(halves)
+    log(f"native runtime: PLY of {len(pts_np)} points, native "
+        f"{statistics.median(native_ms):.2f} ms, numpy "
+        f"{statistics.median(numpy_ms):.2f} ms; mask resize "
+        f"{(h // 2, w // 2)} -> {(h, w)} ms a mask: {resize_ms} (cv2 "
+        f"{'installed' if 'cv2' in paths else 'not installed'}); bin frame "
+        f"warm {bin_route['pipeline_ms_warm']} ms, load_reference "
+        f"{bin_route['stages_ms']['load_reference_ms']:.2f} ms")
+    return {
+        "route": "native host runtime",
+        "main_path": "models.ply.load_ply (tpu3d_torch.native); the "
+                     "resizes io.segmentation.resize_mask_nearest "
+                     "chooses from",
+        "ply_points": len(pts_np),
+        "native_ply_ms": native_ms,
+        "native_ply_ms_median": statistics.median(native_ms),
+        "numpy_ply_ms": numpy_ms,
+        "numpy_ply_ms_median": statistics.median(numpy_ms),
+        "mask_resize_ms": resize_ms,
+        "bin_frame_warm_ms": bin_route["pipeline_ms_warm"],
+        "bin_frame_load_reference_ms":
+            bin_route["stages_ms"]["load_reference_ms"],
+    }
+
+
 def pipeline_phase(torch, np, counters, k9, entries):
-    """Phase 5: K9 against its plain version, the CLI demo, and the bin
-    frame through the pipeline, also with both registration knobs set."""
+    """Phase 5: K9 against its plain version, the CLI demo, the bin frame
+    through the pipeline, also with both registration knobs set, and the
+    host runtime on the bin frame's files."""
     from tpu3d_torch.ops import icp_stats
 
     import tempfile
@@ -1555,7 +1688,9 @@ def pipeline_phase(torch, np, counters, k9, entries):
         knob_counters = dict(counters, K7=icp_stats.icp_matches)
         route["knobs"] = bin_frame_route(torch, np, knob_counters, tmp,
                                          frame, K, knobs=True)
-    return cli, route
+        host = native_route(np, os.path.join(tmp, "bin_frame.ply"),
+                            bin_masks(np, width, height), route)
+    return cli, route, host
 
 
 # --------------------------------------------------------------------------
@@ -2015,6 +2150,326 @@ def scene_phase(torch, np, dev, args, entries, counters):
     return k8, probe_phase(torch, dev), [nn_route, pair_route, batch_route]
 
 
+# --------------------------------------------------------------------------
+# Phase 7: the multiscale entry and the neighbour backends, ICP backends
+# and RANSAC routes
+# --------------------------------------------------------------------------
+
+
+class RecordedDraws:
+    """The default draw stream, recording the chunks it was asked for
+    (None: the one-shot or two-stage draw)."""
+
+    def __init__(self, seed):
+        from tpu3d_torch.ops import ransac
+
+        self.inner = ransac.torch_draws(seed)
+        self.chunks = set()
+
+    def __call__(self, c, e):
+        self.chunks.add(c)
+        return self.inner(c, e)
+
+    def triples(self, c, h, count):
+        self.chunks.add(c)
+        return self.inner.triples(c, h, count)
+
+    def rows(self, n, count):
+        return self.inner.rows(n, count)
+
+
+def iteration_counter(icp):
+    """A context that counts the stats passes of every ``icp_loop`` (one a
+    Gauss-Newton iteration); yields the one-element count."""
+
+    @contextlib.contextmanager
+    def counting():
+        n = [0]
+        loop = icp.icp_loop
+
+        def counted_loop(stats_fn, *a, **k):
+            def counted(T):
+                n[0] += 1
+                return stats_fn(T)
+            return loop(counted, *a, **k)
+
+        icp.icp_loop = counted_loop
+        try:
+            yield n
+        finally:
+            icp.icp_loop = loop
+    return counting()
+
+
+def multiscale_route(torch, np, dev, n_points, voxel, counters):
+    """7a: ``register_pair_multiscale`` at the bench fixture's width, levels
+    2, step 3, 100,000 hypotheses (RANSAC's default caps): K2-K7 launched,
+    the quality gate, warm host ms, device busy, peak memory, and the fine
+    target's slab_knn (k = 30) timed with its largest window."""
+    import tpu3d_torch
+    from tpu3d_torch import registration as reg
+    from tpu3d_torch.models.fixtures import make_pair
+    from tpu3d_torch.ops import slab
+
+    src_np, tgt_np, R_true, t_true = make_pair(n_points)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=voxel)
+    src = tpu3d_torch.PointCloud.from_numpy(src_np, device=dev)
+    tgt = tpu3d_torch.PointCloud.from_numpy(tgt_np, device=dev)
+
+    def pair():
+        return tpu3d_torch.register_pair_multiscale(src, tgt, cfg, levels=2,
+                                                    scale_step=3.0)
+
+    knn_calls = []
+    slab_knn = reg.slab_knn
+
+    def counted(index, q, radius, k, **kw):
+        knn_calls.append((q.shape[0], k))
+        return slab_knn(index, q, radius, k=k, **kw)
+
+    reg.slab_knn = counted
+    try:
+        pair()  # warm
+        knn_calls.clear()
+        reset_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refined, coarse = pair()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        launches = launch_counts(counters)
+    finally:
+        reg.slab_knn = slab_knn
+    log(f"multiscale launches {launches}, slab_knn calls {knn_calls}")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel did not launch on the multiscale path: {launches}")
+    fine = reg.downsample_bucketed(tgt, cfg)
+    check((fine.capacity, 30) in knn_calls,
+          f"the fine target's slab_knn at k = 30 did not run: {knn_calls}")
+    rot_err, trn_err = gate(np, refined, R_true, t_true)
+    times = [first_ms] + host_ms(torch, pair, warm=0, reps=3)[0]
+    busy, top = device_profile(torch, pair)
+    log(f"multiscale device time by entry (ms): {top}")
+
+    # The fine level's search on its own (surface_neighbors' call): its
+    # time, windows and overflow flag. The queries are the slab's sorted
+    # rows, valid ones first; the padding rows keep their coordinates
+    # (zeros), so the one block that holds both the last valid rows and
+    # padding spans x from 0 to the cloud's end and overflows slice_cap,
+    # as in the JAX package. Every valid row of a block without padding
+    # finds itself first, at d² = 0.
+    radius = float(np.float32(voxel * 5.0))
+    index = slab.build_slab(fine.points, fine.mask)
+    q = index.sorted_points_t.T.contiguous()
+    knn_ms = cuda_ms(torch, lambda: slab.slab_knn(index, q, radius, k=30),
+                     warm=1, reps=3)
+    idx, d2, overflowed = slab.slab_knn(index, q, radius, k=30)
+    pad = (-q.shape[0]) % 256
+    qb = torch.cat([q, torch.full((pad, 3), 2.9e4, device=dev)])
+    _, length = slab.block_slices(index, qb.reshape(-1, 256, 3)[..., 0],
+                                  radius)
+    n_valid = fine.count()
+    full = n_valid // 256  # blocks of valid rows only
+    check(torch.equal(idx[:full * 256, 0].long(),
+                      index.sorted_orig[:full * 256])
+          and bool((d2[:full * 256, 0] == 0).all()),
+          "a valid row's first slab neighbour is not itself")
+    check(bool(torch.isfinite(d2).all()), "slab_knn gave a non-finite d²")
+    check(int(length[:full].max()) <= 8192,
+          "a block of valid rows overflows slice_cap")
+    log(f"multiscale: pose error rot {rot_err:.2e} trans {trn_err:.2e} m, "
+        f"fitness {float(refined.fitness):.5f}, coarse "
+        f"{float(coarse.fitness):.5f}, pairs {[round(t, 2) for t in times]} "
+        f"ms, busy {busy:.2f} ms; slab_knn {q.shape[0]} x k 30: "
+        f"{knn_ms:.3f} ms, windows max {int(length.max())} (valid blocks "
+        f"{int(length[:full].max())}), overflowed {bool(overflowed)}")
+    return {
+        "route": "multiscale",
+        "main_path": "tpu3d_torch.register_pair_multiscale",
+        "fixture": f"make_pair({n_points}), voxel {voxel}, levels 2, "
+                   "scale_step 3",
+        "level_voxels": [voxel * 3.0, voxel],
+        "rot_err": rot_err, "trans_err": trn_err,
+        "fitness": float(refined.fitness),
+        "coarse_fitness": float(coarse.fitness), "pair_ms": times,
+        "pair_ms_median": statistics.median(times), "device_busy_ms": busy,
+        "device_ms_top": top, "peak_mem_mb": peak_mb, "launches": launches,
+        "slab_knn_calls": knn_calls,
+        "slab_knn": {"rows": q.shape[0], "k": 30, "ms": knn_ms,
+                     "max_window": int(length.max()),
+                     "max_window_valid_blocks": int(length[:full].max()),
+                     "mean_window": float(length.float().mean()),
+                     "overflowed": bool(overflowed),
+                     "valid_rows_in_the_padded_block":
+                         n_valid - full * 256},
+    }
+
+
+def neighbor_modes_route(torch, np, dev):
+    """7b: at bucket 8,192, prepare_features with each neighbour mode, then
+    register_prepared: each through the gate, its prepare ms and its
+    descriptor correspondences' agreement with 'brute'. Returns the route
+    and the brute mode's prepared pair and coarse pose (for 7c)."""
+    import tpu3d_torch
+    from tpu3d_torch import registration as reg
+    from tpu3d_torch.models.fixtures import make_pair
+    from tpu3d_torch.ops import ransac
+
+    src_np, tgt_np, R_true, t_true = make_pair(N_POINTS, voxel=VOXEL)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=VOXEL)
+    sd = reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(src_np, device=dev), cfg)
+    td = reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(tgt_np, device=dev), cfg)
+    check(sd.capacity == td.capacity == 8192, f"bucket {sd.capacity}")
+    modes, brute = {}, None
+    for mode in ("brute", "slab", "grid"):
+        times, (sp, sf) = host_ms(
+            torch, lambda: reg.prepare_features(sd, cfg, mode), reps=3)
+        tp, tf = reg.prepare_features(td, cfg, mode)
+        refined, coarse = reg.register_prepared(sp, tp, sf, tf, cfg)
+        rot_err, trn_err = gate(np, refined, R_true, t_true)
+        corr = ransac.feature_correspondences(sf, tf)
+        if brute is None:
+            brute = (sp, tp, sf, tf, coarse, corr)
+        agree = float((corr == brute[5])[sd.mask].float().mean())
+        modes[mode] = {
+            "prepare_ms": times, "prepare_ms_median": statistics.median(times),
+            "correspondence_agreement_with_brute": agree,
+            "rot_err": rot_err, "trans_err": trn_err,
+            "fitness": float(refined.fitness),
+            "coarse_fitness": float(coarse.fitness)}
+        log(f"neighbour mode {mode}: prepare {statistics.median(times):.2f} "
+            f"ms, correspondences equal brute's on {agree:.4f}, pose error "
+            f"rot {rot_err:.2e} trans {trn_err:.2e} m")
+    route = {"route": "neighbour modes, bucket 8192",
+             "main_path": "prepare_features(neighbor_mode), "
+                          "register_prepared",
+             "fixture": f"make_pair({N_POINTS}, voxel={VOXEL})",
+             "modes": modes}
+    return route, brute[:5]
+
+
+# The pose tolerance between ICP backends: the CPU tests' (each backend
+# against JAX's within 1e-5).
+ICP_BACKEND_ATOL = 1e-5
+
+
+def icp_backends(torch, np, icp, source, target, T0, thr, modes, label,
+                 max_iterations=200):
+    """icp_refine from ``T0`` with each of ``modes`` (the slab backend over
+    every source row): poses within ICP_BACKEND_ATOL of the first mode's,
+    each backend's host ms and ms per stats pass."""
+    out, first = {}, None
+    for mode in modes:
+        def refine():
+            return icp.icp_refine(source, target, T0, thr,
+                                  max_iterations=max_iterations,
+                                  nn_mode=mode, src_mode="exact")
+
+        refine()  # warm
+        with iteration_counter(icp) as n:
+            times, res = host_ms(torch, refine, warm=0, reps=3)
+        passes = n[0] // 3
+        T = res.transformation.cpu().numpy()
+        check(np.isfinite(T).all(), f"{label} {mode}: non-finite pose")
+        if first is None:
+            first = T
+        diff = float(np.abs(T - first).max())
+        check(diff <= ICP_BACKEND_ATOL,
+              f"{label}: {mode} lands {diff} from {modes[0]}")
+        ms = statistics.median(times)
+        out[mode] = {"ms": times, "ms_median": ms, "stats_passes": passes,
+                     "ms_per_pass": ms / max(passes, 1),
+                     "fitness": float(res.fitness),
+                     "pose_diff_from_" + modes[0]: diff}
+        log(f"{label} ICP {mode}: {ms:.2f} ms, {passes} passes, fitness "
+            f"{float(res.fitness):.5f}, {diff:.2e} from {modes[0]}")
+    return out
+
+
+def ransac_routes(torch, np, ransac, icp, sub_c, sub_f, tgt, tgt_f, src,
+                  voxel, R_true, t_true):
+    """7d: RANSAC's routing arguments on the 100k pair's sparse subset
+    against the dense target, each refined by ICP through the gate: chunks
+    run and RANSAC ms."""
+    out = {}
+    for name, kw in (("hyp_chunk 16384", dict(hyp_chunk=16384)),
+                     ("hyp_chunk 50176", dict(hyp_chunk=50176)),
+                     ("early_exit off", dict(early_exit=False)),
+                     ("sampling gather", dict(sampling="gather"))):
+        draws = RecordedDraws(42)
+
+        def coarse():
+            return ransac.ransac_registration(
+                sub_c, tgt, sub_f, tgt_f, voxel, max_iterations=100000,
+                corr_mode="exact", draws=draws, **kw)
+
+        times, co = host_ms(torch, coarse, reps=3)
+        refined = icp.icp_refine(src, tgt, co.transformation, voxel * 0.4)
+        rot_err, trn_err = gate(np, refined, R_true, t_true)
+        chunks = sorted(c for c in draws.chunks if c is not None)
+        if name == "early_exit off":
+            check(draws.chunks == {None}, f"{name}: chunks {draws.chunks}")
+        else:
+            check(chunks and None not in draws.chunks,
+                  f"{name}: chunks {draws.chunks}")
+        out[name] = {"ms": times, "ms_median": statistics.median(times),
+                     "chunks_run": len(chunks),
+                     "coarse_fitness": float(co.fitness),
+                     "fitness": float(refined.fitness), "rot_err": rot_err,
+                     "trans_err": trn_err}
+        log(f"RANSAC {name}: {statistics.median(times):.2f} ms, "
+            f"{len(chunks)} chunks, pose error rot {rot_err:.2e} trans "
+            f"{trn_err:.2e} m")
+    return out
+
+
+def entry_points_phase(torch, np, dev, args, counters):
+    """Phase 7: 7a multiscale, 7b neighbour modes, 7c ICP backends (at
+    bucket 8,192 slab, grid and brute; on the 100k pair slab and grid,
+    <= 30 iterations), 7d RANSAC routes on the 100k pair."""
+    import tpu3d_torch
+    from tpu3d_torch import registration as reg
+    from tpu3d_torch.models.fixtures import make_pair
+    from tpu3d_torch.ops import fused_features, icp, ransac
+
+    multiscale = multiscale_route(torch, np, dev, args.points, args.voxel,
+                                  counters)
+    modes, (sp, tp, _, _, coarse) = neighbor_modes_route(torch, np, dev)
+    backends = {"bucket 8192": icp_backends(
+        torch, np, icp, sp, tp, coarse.transformation,
+        VOXEL * 0.4, ("slab", "grid", "brute"), "bucket 8192")}
+
+    voxel = args.voxel
+    src_np, tgt_np, R_true, t_true = make_pair(args.points)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=voxel)
+    sd = reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(src_np, device=dev), cfg)
+    tgt, tgt_f = reg.prepare_features(reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(tgt_np, device=dev), cfg), cfg,
+        "fused")
+    tgt_f = ransac.with_target_operand(tgt_f)
+    sub_c, sub_f, _ = fused_features.fused_prepare_sparse(
+        sd, float(np.float32(voxel * 5.0)))
+    co = ransac.ransac_registration(sub_c, tgt, sub_f, tgt_f, voxel,
+                                    corr_mode="exact")
+    backends["100k"] = icp_backends(
+        torch, np, icp, sd, tgt, co.transformation, voxel * 0.4,
+        ("slab", "grid"), "100k", max_iterations=30)
+    routes = ransac_routes(torch, np, ransac, icp, sub_c, sub_f, tgt, tgt_f,
+                           sd, voxel, R_true, t_true)
+    return [multiscale, modes,
+            {"route": "ICP backends", "main_path": "icp_refine(nn_mode)",
+             "tolerance": ICP_BACKEND_ATOL, "backends": backends},
+            {"route": "RANSAC routes, 100k pair",
+             "main_path": "ransac_registration(hyp_chunk, early_exit, "
+                          "sampling), icp_refine",
+             "routes": routes}]
+
+
 def run(args):
     import numpy as np
     import torch
@@ -2039,6 +2494,12 @@ def run(args):
     log(report.getvalue())
     log(f"kernels built in {build_s:.1f} s")
     resources = kernel_resources(report.getvalue())
+    from tpu3d_torch import native
+
+    t0 = time.perf_counter()
+    check(native.available(), "the host runtime did not build")
+    host_build_s = time.perf_counter() - t0
+    log(f"host runtime built in {host_build_s:.1f} s")
 
     card_states = {"phase 3": card_state()}
     k5, k6, k7, k7m, ref_route = reference_route(torch, np, dev)
@@ -2077,8 +2538,9 @@ def run(args):
                 "K7": icp_stats.icp_p2plane_stats,
                 "K9": depth.bilateral_filter}
     card_states["phase 5"] = card_state()
-    cli, bin_route = pipeline_phase(torch, np, counters, k9,
-                                    sweeps + [k7])
+    cli, bin_route, host = pipeline_phase(torch, np, counters, k9,
+                                          sweeps + [k7])
+    host["build_s"] = host_build_s
     k9["launches"] = bin_route["launches"]["K9"]
     kernels = sweeps + [k5, k6, k7, k9]
     for entry, name in zip(kernels, counters):
@@ -2089,6 +2551,12 @@ def run(args):
         torch, np, dev, args, sweeps + [k5, k6, k7],
         {k: f for k, f in counters.items() if k != "K9"})
     k8["card"] = smi
+    card_states["phase 7"] = card_state()
+    entry_routes = entry_points_phase(
+        torch, np, dev, args, {k: f for k, f in counters.items()
+                               if k != "K9"})
+    for entry, name in zip(sweeps + [k5, k6, k7], counters):
+        entry["launches_multiscale"] = entry_routes[0]["launches"][name]
     k7m["launches_pipeline_knobs"] = bin_route["knobs"]["launches"]["K7"]
     kernels = kernels + [k7m]
     for e in kernels + [k8] + probe_entries:
@@ -2108,7 +2576,8 @@ def run(args):
     card_states["end"] = card_state()
     log(f"card state by phase: {card_states}")
     scene_routes[-1]["card_states"] = card_states
-    for route in [ref_route, scale_route, cli, bin_route] + scene_routes:
+    for route in ([ref_route, scale_route, cli, bin_route, host]
+                  + scene_routes + entry_routes):
         print(json.dumps(route), flush=True)
     return {
         "ok": True,

@@ -122,3 +122,28 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_search_indexes_round_trip(rng):
+    """The JAX package's SlabIndex and GridIndex move into the port's
+    types field by field (the JAX slab's extra sorted_points is left
+    behind), and back."""
+    import jax.numpy as jnp
+
+    from tpu3d.ops.grid import build_grid
+    from tpu3d.ops.slab import build_slab
+    from tpu3d_torch.ops.grid import GridIndex
+    from tpu3d_torch.ops.slab import SlabIndex
+
+    pts = rng.uniform(-0.1, 0.1, (300, 3)).astype(np.float32)
+    mask = np.arange(300) < 280
+    for cls, jidx in ((SlabIndex, build_slab(jnp.asarray(pts),
+                                             jnp.asarray(mask))),
+                      (GridIndex, build_grid(jnp.asarray(pts),
+                                             jnp.asarray(mask), 0.02))):
+        moved = carry.from_numpy(cls, jidx, device="cpu")
+        back = carry.to_numpy(moved)
+        assert set(back) == set(cls._fields)
+        for f in cls._fields:
+            np.testing.assert_array_equal(back[f],
+                                          np.asarray(getattr(jidx, f)))

@@ -343,3 +343,53 @@ def test_kabsch_from_cross_cov_matches_jax(rng):
     R, t = kabsch_from_cross_cov(3.0, np.zeros(3), np.zeros(3),
                                  np.full((3, 3), np.nan))
     assert not np.isfinite(R).any() and not np.isfinite(t).any()
+
+
+@pytest.mark.parametrize("nn_mode,point_to_plane,cell_capacity", [
+    ("grid", True, 16), ("grid", False, 16), ("grid", True, 4),
+    ("brute", True, 16), ("slab", False, 16),
+])
+def test_icp_nn_mode_matches_jax(prepared_4096, nn_mode, point_to_plane,
+                                 cell_capacity):
+    """An explicit ``nn_mode`` on a 4,096-row target ('auto' would take
+    the slab backend): the grid backend (cell size = the threshold, with
+    the default and an overflowing ``cell_capacity``), brute and slab from
+    the same start as JAX. 'grid' and 'brute' iterate every source row.
+    Tolerances as test_icp_refine_matches_jax: the pose within 1e-5, the
+    fitness within 1e-3."""
+    sd, td, R, t = prepared_4096
+    T0 = _start(R, t)
+    kw = dict(max_iterations=60, point_to_plane=point_to_plane,
+              nn_mode=nn_mode, cell_capacity=cell_capacity)
+    ref = jax_icp_refine(sd, td, jnp.asarray(T0), VOXEL * 0.4, **kw)
+    got = icp.icp_refine(_to_torch(sd), _to_torch(td), _t(T0), VOXEL * 0.4,
+                         **kw)
+    np.testing.assert_allclose(got.transformation.numpy(),
+                               np.asarray(ref.transformation), atol=1e-5)
+    np.testing.assert_allclose(float(got.fitness), float(ref.fitness),
+                               atol=1e-3)
+    np.testing.assert_allclose(float(got.rmse), float(ref.rmse), rtol=1e-3,
+                               atol=1e-5)
+    assert float(got.fitness) > 0.9
+
+
+def test_icp_grid_stats_use_grid_top1(prepared_4096, monkeypatch):
+    """nn_mode='grid' takes its matches from grid_top1 with the given
+    cell capacity, never from K5 or K7."""
+    sd, td, R, t = prepared_4096
+    calls = []
+    real = icp.grid_top1
+
+    def counted(grid, P, cell_capacity):
+        calls.append(cell_capacity)
+        return real(grid, P, cell_capacity=cell_capacity)
+
+    monkeypatch.setattr(icp, "grid_top1", counted)
+    monkeypatch.setattr(icp, "nearest_neighbor",
+                        lambda *a, **k: pytest.fail("K5 ran"))
+    monkeypatch.setattr(icp, "SlabStats", lambda *a, **k: pytest.fail("K7"))
+    res = icp.icp_refine(_to_torch(sd), _to_torch(td), _t(_start(R, t)),
+                         VOXEL * 0.4, max_iterations=5, nn_mode="grid",
+                         cell_capacity=12)
+    assert calls and set(calls) == {12}
+    assert float(res.fitness) > 0.5

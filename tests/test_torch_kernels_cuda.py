@@ -1065,3 +1065,100 @@ def test_voxel_downsample_is_deterministic(dev):
         assert torch.equal(out.mask.cpu(), cpu.mask)
         assert torch.equal(out.points.cpu(), cpu.points)
         assert torch.equal(out.colors.cpu(), cpu.colors)
+
+
+# --- The neighbour backends (plain PyTorch, no kernel) on the card equal
+# their CPU runs: the grid index, its searches, slab_knn and
+# surface_neighbors bit for bit (each d² rounded (dx² + dy²) + dz² on both
+# devices), and ICP on the grid backend at the CPU's pose.
+
+
+def _wavy_surface(n, seed):
+    g = np.random.default_rng(seed)
+    xy = g.uniform(-0.2, 0.2, size=(n, 2)).astype(np.float32)
+    z = 0.7 + 0.03 * np.sin(20 * xy[:, 0]) * np.cos(18 * xy[:, 1])
+    return np.column_stack([xy, z]).astype(np.float32)
+
+
+@pytest.mark.parametrize("cell", [0.01, 1e-6])
+def test_grid_on_card_equals_cpu(dev, cell):
+    from tpu3d_torch.ops import grid
+
+    pts = torch.from_numpy(_wavy_surface(6000, 1))
+    mask = torch.arange(6000) < 5800
+    q = pts[::3] + 0.002
+    cpu = grid.build_grid(pts, mask, cell)
+    card = grid.build_grid(pts.to(dev), mask.to(dev), cell)
+    for f in grid.GridIndex._fields:
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    for a, b in zip(grid.grid_top1(card, q.to(dev)), grid.grid_top1(cpu, q)):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(grid.grid_knn(card, q.to(dev), k=30),
+                    grid.grid_knn(cpu, q, k=30)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("slice_cap,k", [(8192, 30), (256, 30), (16, 30)])
+def test_slab_knn_on_card_equals_cpu(dev, slice_cap, k):
+    from tpu3d_torch.ops import slab
+
+    pts = torch.from_numpy(_wavy_surface(20000, 2))
+    mask = torch.arange(20000) < 19500
+    cpu = slab.build_slab(pts, mask)
+    card = slab.build_slab(pts.to(dev), mask.to(dev))
+    q = cpu.sorted_points_t.T.contiguous()
+    want = slab.slab_knn(cpu, q, 0.01, k=k, slice_cap=slice_cap)
+    got = slab.slab_knn(card, q.to(dev), 0.01, k=k, slice_cap=slice_cap)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert bool((want[1] < 1e29).any())
+
+
+@pytest.mark.parametrize("mode", ["slab", "grid", "brute"])
+def test_surface_neighbors_on_card_equals_cpu(dev, mode):
+    """Slab and grid bit for bit; brute's d² is the matmul expansion, whose
+    rounding the two devices' products differ in, which reorders near-tied
+    neighbours: indices equal in ≥ 99 % of slots, d² within 1e-5 absolute
+    (as the K5 tests hold it)."""
+    reg = tpu3d_torch.registration
+    cloud = tpu3d_torch.PointCloud.from_numpy(_wavy_surface(8000, 3),
+                                              capacity=8192, device="cpu")
+    on = cloud._replace(points=cloud.points.to(dev),
+                        mask=cloud.mask.to(dev))
+    ci, cd = reg.surface_neighbors(cloud, 0.02, k=100, mode=mode)
+    gi, gd = reg.surface_neighbors(on, 0.02, k=100, mode=mode)
+    assert gi.is_cuda and gi.shape == ci.shape == (8192, 100)
+    if mode == "brute":
+        assert (gi.cpu() == ci).float().mean() >= 0.99
+        torch.testing.assert_close(gd.cpu(), cd, rtol=0, atol=1e-5)
+    else:
+        assert torch.equal(gi.cpu(), ci) and torch.equal(gd.cpu(), cd)
+
+
+def test_icp_grid_backend_on_card(dev):
+    """icp_refine(nn_mode='grid') on the card lands on the CPU pose within
+    1e-5 with the same inlier count (float sums in another order)."""
+    src, tgt, R, t = make_pair(4096, voxel=0.005)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=0.005)
+    reg = tpu3d_torch.registration
+    sd = reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(src, device="cpu"), cfg)
+    td = reg.prepare_icp_target(
+        tpu3d_torch.PointCloud.from_numpy(tgt, device="cpu"), cfg)
+    T0 = torch.eye(4)
+    T0[:3, :3] = torch.from_numpy(R)
+    T0[:3, 3] = torch.from_numpy(t) + torch.tensor([0.002, -0.001, 0.001])
+    kw = dict(max_iterations=40, nn_mode="grid")
+    cpu = icp.icp_refine(sd, td, T0, 0.002, **kw)
+
+    def on(c):
+        return tpu3d_torch.PointCloud(
+            points=c.points.to(dev), mask=c.mask.to(dev),
+            normals=None if c.normals is None else c.normals.to(dev))
+
+    card = icp.icp_refine(on(sd), on(td), T0.to(dev), 0.002, **kw)
+    torch.testing.assert_close(card.transformation.cpu(), cpu.transformation,
+                               rtol=0, atol=1e-5)
+    n = int(sd.mask.sum())
+    assert round(float(card.fitness) * n) == round(float(cpu.fitness) * n)
+    assert float(cpu.fitness) > 0.9

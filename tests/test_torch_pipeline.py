@@ -164,8 +164,10 @@ def test_registration_knobs_match_jax(bumpy, knob):
 
 
 def test_package_exports_match_jax():
-    """The package exports the JAX package's names: the version, the
-    pipeline config and its loader, and prepare_cloud: the downsample and
+    """The package exports the JAX package's names (register_pair_multiscale
+    included), and its ops package those of tpu3d.ops that the port has:
+    the version, the pipeline config and its loader, and prepare_cloud:
+    the downsample and
     the normals of JAX's, and FPFH as the port's own downsample and
     prepare_features give it (the descriptors' parity with JAX's is
     tests/test_torch_prepare.py's)."""
@@ -175,8 +177,16 @@ def test_package_exports_match_jax():
     from tpu3d.types import PointCloud as JaxCloud
 
     assert tpu3d_torch.__version__ == tpu3d.__version__ == "0.1.0"
-    assert set(tpu3d.__all__) - set(tpu3d_torch.__all__) == {
-        "register_pair_multiscale"}
+    import tpu3d.ops
+    import tpu3d_torch.ops
+
+    assert set(tpu3d.__all__) == set(tpu3d_torch.__all__)
+    # Not in the port: the batched SVD kabsch (ROADMAP queue 1, item 8),
+    # the TPU's NN entry points (K5 is ops.nn.nearest_neighbor), and
+    # deproject, whose name would hide its module.
+    assert set(tpu3d.ops.__all__) - set(tpu3d_torch.ops.__all__) == {
+        "kabsch", "nearest_neighbor_pallas", "nearest_neighbor_xla",
+        "deproject"}
     _configs_equal(tpu3d_torch.PipelineConfig(), tpu3d.PipelineConfig())
     _configs_equal(tpu3d_torch.load_config("config/pipeline_config.yaml"),
                    tpu3d.load_config("config/pipeline_config.yaml"))

@@ -95,7 +95,8 @@ def test_knn_indices_match_untied(rng):
 
 def test_surface_neighbors_match(down_pair):
     jdown, nbrs, _, _ = down_pair
-    ti, td = surface_neighbors(_to_torch(jdown), k=100)
+    ti, td = surface_neighbors(_to_torch(jdown), float(np.float32(VOXEL * 5)),
+                               k=100, mode="brute")
     ji, jd = np.asarray(nbrs[0]), np.asarray(nbrs[1])
     # Rows with an exact float tie inside their first 100 may order it
     # differently after rounding; everything else is identical.
@@ -106,7 +107,8 @@ def test_surface_neighbors_match(down_pair):
 
 def test_normals_match(down_pair):
     jdown, nbrs, jn, _ = down_pair
-    tn = estimate_normals(_to_torch(jdown), (_t(nbrs[0]), _t(nbrs[1])), k=30)
+    tn = estimate_normals(_to_torch(jdown), k=30,
+                          neighbors=(_t(nbrs[0]), _t(nbrs[1])))
     mask = np.asarray(jdown.mask)
     cos = np.abs(np.sum(tn.normals.numpy() * np.asarray(jn.normals), axis=1))
     assert cos[mask].min() >= 0.9999
@@ -116,7 +118,7 @@ def test_normals_match(down_pair):
 def test_fpfh_match(down_pair):
     jdown, nbrs, jn, jf = down_pair
     tf = compute_fpfh(_to_torch(jn), float(np.float32(VOXEL * 5.0)),
-                      (_t(nbrs[0]), _t(nbrs[1])))
+                      neighbors=(_t(nbrs[0]), _t(nbrs[1])))
     ok = np.all(
         np.abs(tf.descriptors.numpy() - np.asarray(jf.descriptors)) <= 1e-5,
         axis=1,

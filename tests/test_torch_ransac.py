@@ -288,6 +288,79 @@ def test_gather_sampler_chunks_replay_jax(prepared_4096):
         assert float(got.fitness) > 0.3
 
 
+# The routing arguments (kw, the route JAX takes): the one-shot pad
+# multiple, an explicit chunk size, the early exit off (one shot over the
+# whole budget), and each sampler forced against its 'auto' choice.
+ROUTES = {
+    "chunk 1000, one shot": dict(max_iterations=3000, chunk=1000,
+                                 corr_mode="exact"),
+    "hyp_chunk 20480": dict(max_iterations=30000, hyp_chunk=20480,
+                            corr_mode="exact", confidence=1.0),
+    "early_exit off": dict(max_iterations=30000, early_exit=False,
+                           corr_mode="exact"),
+    "early_exit on": dict(max_iterations=30000, early_exit=True,
+                          corr_mode="exact"),
+    "sampling gather": dict(max_iterations=30000, sampling="gather",
+                            corr_mode="exact", confidence=1.0),
+    "sampling rotation, n 1024": dict(max_iterations=20000,
+                                      sampling="rotation", corr_cap=1024,
+                                      confidence=1.0),
+}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_routing_arguments_replay_jax(prepared_4096, route):
+    """``chunk``, ``hyp_chunk``, ``early_exit`` and ``sampling`` take the
+    JAX route with the JAX draws replayed: the same winner (the pose within
+    1e-5, identical inlier counts, rmse within 1e-5 relative)."""
+    sd, td, sf, tf = prepared_4096
+    ts, tt, tsf, ttf = _to_torch(sd, td, sf, tf)
+    kw = ROUTES[route]
+    ref = jax_ransac(sd, td, sf, tf, VOXEL, **kw)
+    got = ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL,
+                                     draws=JaxDraws(42), **kw)
+    mask = np.asarray(sd.mask)
+    if kw.get("corr_mode") == "exact":
+        n_valid = int(mask.sum())
+    else:
+        stride = ransac.decimation_stride(4096, kw["corr_cap"])
+        n_valid = int(mask[: stride * kw["corr_cap"]: stride].sum())
+    _assert_replays(got, ref, n_valid)
+    assert float(got.fitness) > 0.3
+
+
+def test_routing_arguments_pick_the_route(prepared_4096, monkeypatch):
+    """Which sampler and how many hypotheses each argument gives: the one
+    shot draws ⌈iterations/chunk⌉·chunk triples from the one-shot stream
+    (chunk None); hyp_chunk sets the chunked route's chunk size; sampling
+    'gather' draws per chunk; early_exit=False never enters a chunk."""
+    ts, tt, tsf, ttf = _to_torch(*prepared_4096)
+    drawn = []
+
+    class Recorder(JaxDraws):
+        def __call__(self, c, e):
+            drawn.append(("rotation", c))
+            return super().__call__(c, e)
+
+        def triples(self, c, h, count):
+            drawn.append(("gather", c, h))
+            return super().triples(c, h, count)
+
+    def run(**kw):
+        drawn.clear()
+        ransac.ransac_registration(ts, tt, tsf, ttf, VOXEL, corr_mode="exact",
+                                   confidence=1.0, draws=Recorder(42), **kw)
+        return list(drawn)
+
+    assert run(max_iterations=3000, chunk=1000) == [("gather", None, 3000)]
+    assert run(max_iterations=30000, early_exit=False) == [
+        ("gather", None, 30208)]
+    assert run(max_iterations=30000, sampling="gather") == [
+        ("gather", 0, 16384), ("gather", 1, 16384)]
+    got = run(max_iterations=30000, hyp_chunk=20480)
+    assert {d[1] for d in got} == {0, 1} and got[0][0] == "rotation"
+
+
 def test_gather_sampler_small_counts():
     """Fewer than three valid rows: every gather triple repeats a row, so
     the result is the identity with fitness 0 on both routes."""

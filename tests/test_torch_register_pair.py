@@ -1,7 +1,7 @@
 """End-to-end port parity: ``tpu3d_torch.register_pair`` against the JAX
 ``register_pair`` on the bench fixture, with the JAX draw stream replayed,
 on the reference-parity route and on the sparse arm (with its escalation),
-and the routes the port does not hold yet."""
+and the routes the port does not hold yet (multi-device registration)."""
 
 import numpy as np
 import pytest
@@ -138,9 +138,12 @@ def test_unported_routes_raise():
     cfg = tpu3d_torch.RegistrationConfig(voxel_size=VOXEL)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tpu3d_torch.register_pair(s, g, cfg, mesh=object())
+    # An explicit neighbour mode of the gather route is ported: it returns
+    # normals and descriptors for every row.
     down = tpu3d_torch.registration.downsample_bucketed(s, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpu3d_torch.registration.prepare_features(down, cfg, "slab")
+    pd, feats = tpu3d_torch.registration.prepare_features(down, cfg, "slab")
+    assert pd.normals.shape == (down.capacity, 3)
+    assert feats.descriptors.shape == (down.capacity, 33)
     # The sparse arm is automatic only where the source lies on a card.
     big = tpu3d_torch.PointCloud(points=s.points.repeat(64, 1),
                                  mask=s.mask.repeat(64))

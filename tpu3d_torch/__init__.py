@@ -30,6 +30,7 @@ from tpu3d_torch.registration import (  # noqa: E402
     bucket_capacity,
     prepare_cloud,
     register_pair,
+    register_pair_multiscale,
     register_prepared,
 )
 from tpu3d_torch.types import (  # noqa: E402
@@ -50,6 +51,7 @@ __all__ = [
     "load_config",
     "prepare_cloud",
     "register_pair",
+    "register_pair_multiscale",
     "register_prepared",
     "__version__",
 ]

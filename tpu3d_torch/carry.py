@@ -1,9 +1,12 @@
 """Carry state across frameworks: the port's tensors ↔ numpy arrays.
 
-The system has no weights; its state is the clouds, their descriptors and
-the registration results. Each is a NamedTuple whose fields are arrays or
-None, so one pair of functions moves any of them, field by field, between
-numpy (what the JAX package and files exchange) and tensors on a device.
+The system has no weights; its state is the clouds, their descriptors,
+the registration results and the search indexes (``GridIndex``,
+``SlabIndex``). Each is a NamedTuple whose fields are arrays or None, so
+one pair of functions moves any of them, field by field, between numpy
+(what the JAX package and files exchange) and tensors on a device. A
+field the port's type lacks (the JAX ``SlabIndex.sorted_points``) is
+left behind.
 """
 
 from __future__ import annotations
@@ -13,9 +16,12 @@ from typing import NamedTuple, TypeVar
 import numpy as np
 import torch
 
+from tpu3d_torch.ops.grid import GridIndex
+from tpu3d_torch.ops.slab import SlabIndex
 from tpu3d_torch.types import FPFHFeatures, PointCloud, RegistrationResult
 
-T = TypeVar("T", PointCloud, FPFHFeatures, RegistrationResult)
+T = TypeVar("T", PointCloud, FPFHFeatures, RegistrationResult, GridIndex,
+            SlabIndex)
 
 
 def to_numpy(state: NamedTuple) -> dict:

@@ -94,7 +94,7 @@ class ParallelConfig:
     or 'auto' selects the sharded registration stack over ``devices``
     devices with a ``halo``-row prepare strip in the JAX package; the port
     does not route yet, and a mode other than 'off' raises in ``Pipeline``
-    (ROADMAP.md queue 1, item 16)."""
+    (ROADMAP.md queue 1, item 9)."""
 
     mode: str = "off"  # off|on|auto
     devices: int = 0

@@ -4,7 +4,9 @@ Counterpart of ``tpu3d/ops/fpfh.py`` (``_bin_index``, ``compute_fpfh``):
 the 100 closest neighbours within ``radius`` (self skipped by the
 pair-distance gate), Darboux angles with a real ``atan2``, an L1-normalised
 3×11-bin SPFH, then the 1/dist-weighted neighbour sum, L1-normalised.
-Queries are processed in chunks to bound the (C, K, 33) gather.
+Queries are processed in chunks to bound the (C, K, 33) gather. Without
+precomputed neighbours it searches with ``radius_capped_neighbors``, as
+the JAX one does.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import math
 import numpy as np
 import torch
 
+from tpu3d_torch.ops.neighbors import check_method, radius_capped_neighbors
 from tpu3d_torch.types import FPFHFeatures, PointCloud
 
 _MAX_NN = 100
@@ -32,19 +35,29 @@ def _normalize_l1(h: torch.Tensor) -> torch.Tensor:
 def compute_fpfh(
     cloud: PointCloud,
     radius: float,
-    neighbors: tuple[torch.Tensor, torch.Tensor],
     max_nn: int = _MAX_NN,
     chunk: int = 1024,
+    method: str = "auto",
+    neighbors: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> FPFHFeatures:
-    """Descriptors from a precomputed ascending self-kNN ``(idx, d2)``."""
+    """Descriptors over the ``max_nn`` closest neighbours within
+    ``radius``. ``neighbors``: a precomputed ascending self-kNN ``(idx,
+    d2)`` with ``max_nn`` columns, shared with the normals; None searches
+    with :func:`radius_capped_neighbors` (``method``)."""
+    check_method(method)
     if cloud.normals is None:
         raise ValueError("compute_fpfh requires normals (run estimate_normals)")
     pts, nrm, mask = cloud.points, cloud.normals, cloud.mask
     n = cloud.capacity
-    idx = neighbors[0][:, :max_nn].long()
-    d2 = neighbors[1][:, :max_nn]
-    r2 = float(np.float32(radius) ** 2)  # fp32, as the JAX package rounds
-    in_radius = (d2 <= r2) & (d2 < 1e29)
+    if neighbors is None:
+        idx, d2, in_radius = radius_capped_neighbors(
+            pts, mask, radius, max_nn, method=method)
+        idx = idx.long()
+    else:
+        idx = neighbors[0][:, :max_nn].long()
+        d2 = neighbors[1][:, :max_nn]
+        r2 = float(np.float32(radius) ** 2)  # fp32, as the JAX package rounds
+        in_radius = (d2 <= r2) & (d2 < 1e29)
     dist = torch.sqrt(d2)
     contrib = in_radius & (dist >= 1e-8)  # also removes self at distance 0
 

@@ -262,7 +262,7 @@ def fused_prepare_features(
     if engine not in ("auto", "pallas"):
         raise NotImplementedError(
             f"fused_prepare_features engine={engine!r} is not ported yet "
-            "(ROADMAP.md queue 1, item 4: the XLA sweep engine)"
+            "(ROADMAP.md queue 1, item 8: the XLA sweep engine)"
         )
     block = 128 if block is None else block
     r = _f32(radius)

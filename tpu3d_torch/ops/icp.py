@@ -7,12 +7,16 @@ reduces the correspondence problem to a few sums: the 6×6 normal
 equations (point-to-plane) or the Kabsch cross-covariance and weighted
 means (point-to-point), with n_corr and Σd²:
 
-  * slab backend (targets ≥ 4,096 points, :class:`SlabStats`, the
-    counterpart of ``fused_slab_stats_fn``): K7, one launch over the
-    x-sorted target's per-block windows (:mod:`tpu3d_torch.ops.icp_stats`),
-    which returns the point-to-plane sums or, for point-to-point, the
-    per-query matches that :func:`p2p_stats` reduces;
-  * brute backend (smaller targets): K5 top-1 matches, then masked sums.
+  * slab backend (``nn_mode='slab'``, by default for targets ≥ 4,096
+    points; :class:`SlabStats`, the counterpart of
+    ``fused_slab_stats_fn``): K7, one launch over the x-sorted target's
+    per-block windows (:mod:`tpu3d_torch.ops.icp_stats`), which returns
+    the point-to-plane sums or, for point-to-point, the per-query matches
+    that :func:`p2p_stats` reduces;
+  * gathered backends (``gathered_stats_fn``): any top-1 correspondence
+    function, then masked sums over the gathered matches: 'brute' (by
+    default for smaller targets) K5's top-1 over all targets, 'grid'
+    ``grid_top1`` on a grid of cell size = the threshold.
 
 Point-to-point runs when asked for and wherever the target has no
 normals. The JAX ``while_loop`` becomes a Python loop. Each iteration reads
@@ -30,6 +34,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from tpu3d_torch.ops.grid import build_grid, grid_top1
 from tpu3d_torch.ops.icp_stats import icp_matches, icp_p2plane_stats
 from tpu3d_torch.ops.nn import nearest_neighbor
 from tpu3d_torch.ops.ransac import decimation_stride
@@ -45,8 +50,8 @@ from tpu3d_torch.types import PointCloud, RegistrationResult
 # Query rows per K7 block (LANES CUDA threads each). 64 keeps windows
 # narrow and gives 128 blocks at the 8,192-row bucket.
 BLOCK = 64
-# Targets of at least this many rows take the slab backend (K7); smaller
-# ones the brute backend (K5), as the JAX package's nn_mode='auto' picks.
+# With nn_mode='auto', targets of at least this many rows take the slab
+# backend (K7), smaller ones the brute backend (K5), as in the JAX package.
 SLAB_MIN_TARGET = 4096
 
 
@@ -181,22 +186,23 @@ def p2p_stats(P, q, keep, d2) -> IcpStats:
 
 
 def gathered_stats_fn(
+    corr_fn: Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]],
     src_pts: torch.Tensor,
     smask: torch.Tensor,
     target_points: torch.Tensor,
-    target_mask: torch.Tensor,
     target_normals: torch.Tensor | None,
     thr: float,
     point_to_plane: bool = True,
 ) -> Callable[[torch.Tensor], IcpStats]:
-    """Brute backend: K5 top-1 matches over all targets, then masked
-    sums over the gathered matches."""
+    """Stats from any top-1 correspondence search ``corr_fn(P) -> (idx,
+    d2)`` with original target rows: the matches within ``thr`` are
+    gathered and reduced with masked sums."""
     thr_f = np.float32(thr)
     thr2 = float(thr_f * thr_f)
 
     def stats(T: torch.Tensor) -> IcpStats:
         P = transform_points(T.to(src_pts.device), src_pts)
-        idx, d2 = nearest_neighbor(P, target_points, target_mask)
+        idx, d2 = corr_fn(P)
         keep = smask & (d2 <= thr2)  # inclusive
         idx = idx.long()
         q = target_points[idx]
@@ -295,6 +301,8 @@ def icp_refine(
     distance_threshold: float,
     max_iterations: int = 200,
     point_to_plane: bool = True,
+    nn_mode: str = "auto",
+    cell_capacity: int = 16,
     target_index: IcpTargetIndex | None = None,
     src_cap: int = 16384,
     src_mode: str = "auto",
@@ -303,10 +311,17 @@ def icp_refine(
     polish_iters: int = 8,
     polish_threshold: float = 0.5,
 ) -> RegistrationResult:
-    """ICP from ``initial_transform``: the slab backend for targets of ≥
-    ``SLAB_MIN_TARGET`` rows (through ``target_index`` when given), brute
-    below. Point-to-plane when ``point_to_plane`` and the target has
-    normals, point-to-point (Kabsch) otherwise.
+    """ICP from ``initial_transform``. Point-to-plane when
+    ``point_to_plane`` and the target has normals, point-to-point (Kabsch)
+    otherwise.
+
+    ``nn_mode`` picks the correspondence backend, each exact for ICP's
+    semantics (matches beyond the threshold are rejected anyway): 'slab'
+    (K7 over the target's x-sorted windows, through ``target_index`` when
+    given), 'grid' (``grid_top1`` with ``cell_capacity`` rows a cell),
+    'brute' (K5 over every target), 'auto' slab for targets of ≥
+    ``SLAB_MIN_TARGET`` rows, brute below. 'grid' and 'brute' iterate
+    every source row.
 
     ``src_mode`` 'auto'/'subsample' on the slab backend with a source of
     ≥ 2·``src_cap`` rows iterates on the strided ``src_cap``-row subset
@@ -319,12 +334,13 @@ def icp_refine(
     the polished pose: the JAX ``lax.cond`` becomes a host ``if`` on the
     fitness, one more device→host read."""
     use_p2l = point_to_plane and target.normals is not None
-    slab = target.capacity >= SLAB_MIN_TARGET
+    if nn_mode == "auto":
+        nn_mode = "slab" if target.capacity >= SLAB_MIN_TARGET else "brute"
     src_pts = source.points.to(torch.float32)
     smask = source.mask
     src_full, smask_full = src_pts, smask
     use_sub = (
-        slab
+        nn_mode == "slab"
         and src_mode in ("subsample", "auto")
         and src_pts.shape[0] >= 2 * src_cap
     )
@@ -334,7 +350,7 @@ def icp_refine(
         smask = smask[: stride * src_cap : stride]
     n_valid = max(float(smask.sum()), 1.0)
     T0 = initial_transform.to(torch.float32)
-    if slab:
+    if nn_mode == "slab":
         index = target_index if target_index is not None else (
             build_icp_target(target))
         x0 = transform_points(T0, src_pts)[:, 0]
@@ -342,7 +358,16 @@ def icp_refine(
         stats = SlabStats(index, src_pts[order], smask[order],
                           distance_threshold, point_to_plane=use_p2l)
     else:
-        stats = gathered_stats_fn(src_pts, smask, target.points, target.mask,
+        if nn_mode == "grid":
+            grid = build_grid(target.points, target.mask, distance_threshold)
+
+            def corr_fn(P):
+                return grid_top1(grid, P, cell_capacity=cell_capacity)
+        else:
+
+            def corr_fn(P):
+                return nearest_neighbor(P, target.points, target.mask)
+        stats = gathered_stats_fn(corr_fn, src_pts, smask, target.points,
                                   target.normals, distance_threshold, use_p2l)
     res = icp_loop(stats, n_valid, T0, max_iterations, use_p2l)
     if not use_sub:

@@ -1,12 +1,13 @@
 """Exact k-nearest-neighbour search as chunked matmul + stable sort.
 
-Counterpart of ``tpu3d/ops/neighbors.py`` (``pairwise_sqdist``, ``knn``
-with ``method='exact'``). The top-1 search (``nearest_neighbor_xla``) has
-its counterpart beside its CUDA kernel, in :mod:`tpu3d_torch.ops.nn`.
+Counterpart of ``tpu3d/ops/neighbors.py`` (``pairwise_sqdist``, ``knn``,
+``radius_capped_neighbors``). The top-1 search (``nearest_neighbor_xla``)
+has its counterpart beside its CUDA kernel, in :mod:`tpu3d_torch.ops.nn`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _BIG = 1e30
@@ -22,19 +23,37 @@ def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(d2, 0.0)
 
 
+METHODS = ("auto", "exact", "approx")
+
+
+def check_method(method: str) -> None:
+    """Raises on a ``method`` that is not one of :data:`METHODS` (what each
+    means: :func:`knn`)."""
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {METHODS}, got {method!r}")
+
+
 def knn(
     queries: torch.Tensor,
     targets: torch.Tensor,
     target_mask: torch.Tensor,
     k: int,
     chunk: int = 1024,
+    method: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """k nearest targets per query: (idx i32[Q, k], d2 f32[Q, k]) ascending.
 
     Ties go to the lowest target index, as ``lax.top_k`` orders them: a
     stable ascending sort, then a slice (``torch.topk`` does not promise
     the tie order). Invalid targets sit at +1e30; with fewer than k
-    targets the extra slots are index 0 at 1e30."""
+    targets the extra slots are index 0 at 1e30.
+
+    ``method``: 'auto' and 'exact' are this exact search. 'approx' names
+    the TPU's ``approx_max_k`` partial reduction in the JAX package; there
+    is none here, so it takes the exact search too. Any other value
+    raises ValueError; the searches that take ``method`` pass it here or
+    check it the same way."""
+    check_method(method)
     invalid = torch.where(target_mask, 0.0, _BIG).to(torch.float32)
     m = targets.shape[0]
     k_eff = min(k, m)
@@ -51,3 +70,34 @@ def knn(
         idx = torch.nn.functional.pad(idx, (0, pad))
         d2 = torch.nn.functional.pad(d2, (0, pad), value=_BIG)
     return idx, d2
+
+
+def radius_capped_neighbors(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    radius: float,
+    max_nn: int,
+    chunk: int = 1024,
+    method: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's ``findRadiusNN``: the ``max_nn`` closest points
+    within ``radius`` of each point (self included, first at distance 0).
+    Returns (idx i32[N, max_nn], d2 f32[N, max_nn], valid bool[N, max_nn])."""
+    idx, d2 = knn(points, points, mask, k=max_nn, chunk=chunk, method=method)
+    r = np.float32(radius)
+    valid = (d2 <= float(r * r)) & (d2 < _BIG / 2)
+    return idx, d2, valid
+
+
+def smallest_k(d2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest values along the last axis, ascending, and their
+    positions, with ties at the lower position first, the order
+    ``lax.top_k(-d2, k)`` gives. ``d2`` must be non-negative (a distance,
+    or the 1e30 sentinel), so its fp32 bits order as its values; each
+    element's key is those bits above its position, all keys distinct,
+    and ``torch.topk`` of distinct keys has one answer."""
+    pos = torch.arange(d2.shape[-1], device=d2.device, dtype=torch.int64)
+    key = (d2.contiguous().view(torch.int32).to(torch.int64) << 32) | pos
+    keys = torch.topk(key, k, dim=-1, largest=False, sorted=True).values
+    pos_k = keys & 0xFFFFFFFF
+    return d2.gather(-1, pos_k), pos_k

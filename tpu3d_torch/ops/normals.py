@@ -3,7 +3,8 @@
 Counterpart of ``tpu3d/ops/normals.py`` (``smallest_eigvec_3x3``,
 ``estimate_normals``): k=30 neighbours (self included), covariance of the
 neighbourhood, smallest-eigenvalue eigenvector by Cardano + spectral
-projector, flipped toward the origin.
+projector, flipped toward the origin. Without precomputed neighbours it
+runs its own exact self-kNN, as the JAX one does.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import math
 
 import torch
 
+from tpu3d_torch.ops.neighbors import check_method, knn
 from tpu3d_torch.types import PointCloud
 
 
@@ -140,12 +142,19 @@ def smallest_eigvec_3x3_planes_newton(a00, a01, a02, a11, a12, a22,
 
 def estimate_normals(
     cloud: PointCloud,
-    neighbors: tuple[torch.Tensor, torch.Tensor],
     k: int = 30,
+    chunk: int = 1024,
+    method: str = "auto",
+    neighbors: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> PointCloud:
-    """Normals from a precomputed ascending self-kNN ``(idx, d2)`` with at
-    least ``k`` columns (the first k are used)."""
+    """Normals from the k nearest neighbours. ``neighbors``: a precomputed
+    ascending self-kNN ``(idx, d2)`` with at least ``k`` columns (the
+    first k are used), so that one search serves normals and FPFH; None
+    searches with :func:`knn` (``chunk``, ``method``)."""
+    check_method(method)
     pts = cloud.points
+    if neighbors is None:
+        neighbors = knn(pts, pts, cloud.mask, k=k, chunk=chunk, method=method)
     idx, d2 = neighbors[0][:, :k].long(), neighbors[1][:, :k]
     w = (d2 < 1e29).to(torch.float32)  # (N, k)
 

@@ -7,9 +7,10 @@ one-shot routes of ``ransac_registration``): 33-D descriptor nearest
 neighbours (K5), 3-point samples solved by QCP, and rank-16 scoring (K6).
 Two samplers, as in the JAX package: the gather-free rotation sampler
 (chunked route, n ≥ 2,048) and the gather sampler (three independent
-valid-row draws per hypothesis, duplicates disabled) below that and on the
-one-shot route (``max_iterations`` ≤ the chunk size), which scores every
-hypothesis at once. ``score_w16`` is
+valid-row draws per hypothesis, duplicates disabled) below that, on the
+one-shot route (``max_iterations`` ≤ the chunk size, or ``early_exit``
+off), which scores every hypothesis at once, and where ``sampling`` asks
+for it. ``score_w16`` is
 :func:`tpu3d_torch.ops.ransac_score.score_hypotheses`.
 
 The JAX ``while_loop`` over chunks becomes a Python loop that reads one
@@ -256,25 +257,35 @@ def ransac_registration(
     max_iterations: int = 100000,
     confidence: float = 0.999,
     seed: int = 42,
+    chunk: int = 512,
     two_stage: str | bool = "auto",
     corr_cap: int = 8192,
     corr_mode: str = "auto",
+    hyp_chunk: int | str = "auto",
+    early_exit: str | bool = "auto",
     est_cap: int = 2048,
+    sampling: str = "auto",
     draws: Draws | None = None,
 ) -> RegistrationResult:
     """Coarse pose: the best hypothesis in the prefix that ends at the first
     one whose fitness exceeds ``confidence``, with fitness/rmse rescored
     directly at the winner.
 
-    Routes, as in the JAX package: with ``max_iterations`` above the chunk
-    size, chunks of hypotheses until one exceeds (rotation sampling for
-    ``hyp_chunk`` ≥ n ≥ 2,048, else the gather sampler), and for
-    n ≥ 2·``est_cap`` the in-chunk estimate stage (every hypothesis scored
-    on a strided ``est_cap``-row subset, the top 32 rescored exactly);
-    otherwise one shot: ⌈max_iterations/512⌉·512 gather-sampled hypotheses
-    scored at once. ``two_stage`` (True, or 'auto' with n ≥ 32,768 rows)
-    replaces both: the one shot's hypotheses estimated on 16,384 rows drawn
-    with replacement from the valid ones, the best 1,024 rescored exactly.
+    Routes, as in the JAX package: with ``max_iterations`` above
+    ``hyp_chunk`` (by default :func:`hypothesis_chunk`) and ``early_exit``
+    'auto' or True, chunks of ``hyp_chunk`` hypotheses until one exceeds,
+    and for n ≥ 2·``est_cap`` the in-chunk estimate stage (every
+    hypothesis scored on a strided ``est_cap``-row subset, the top 32
+    rescored exactly); otherwise (or with ``early_exit`` False) one shot:
+    ⌈max_iterations/``chunk``⌉·``chunk`` gather-sampled hypotheses scored
+    at once. ``two_stage`` (True, or 'auto' with n ≥ 32,768 rows) replaces
+    both: the one shot's hypotheses estimated on 16,384 rows drawn with
+    replacement from the valid ones, the best 1,024 rescored exactly.
+
+    ``sampling`` draws the chunked route's samples: 'rotation' (gather-
+    free; needs ``hyp_chunk`` ≥ n), 'gather' (three independent valid-row
+    draws per hypothesis), 'auto' rotation for ``hyp_chunk`` ≥ n ≥ 2,048.
+    The one-shot and two-stage routes always gather.
 
     ``corr_mode`` 'auto' or 'subsample' with n ≥ 2·``corr_cap``: exact
     correspondences for the strided ``corr_cap``-row subset of the source
@@ -286,7 +297,8 @@ def ransac_registration(
     v32 = np.float32(voxel_size)
     thr2 = float((v32 * np.float32(1.5)) ** 2)  # strict < on err²
     n = source.capacity
-    hyp_chunk = hypothesis_chunk(max_iterations)
+    if hyp_chunk == "auto":
+        hyp_chunk = hypothesis_chunk(max_iterations)
     src_pts = source.points
     src_mask = source.mask
     src_desc = source_features.descriptors
@@ -297,12 +309,19 @@ def ransac_registration(
             for x in (src_pts, src_mask, src_desc)
         )
         n = corr_cap
-    h_total = -(-max_iterations // 512) * 512
+    h_total = -(-max_iterations // chunk) * chunk
     finalists = min(1024, h_total)
     if two_stage == "auto":
         two_stage = n >= 2 * SUB_N and h_total > 4 * finalists
-    use_chunked = not two_stage and max_iterations > hyp_chunk
-    use_rotation = use_chunked and hyp_chunk >= n >= 2048
+    # 'auto' is truthy: the early exit runs unless early_exit is False.
+    use_chunked = (bool(early_exit) and not two_stage
+                   and max_iterations > hyp_chunk)
+    if sampling == "auto":
+        use_rotation = use_chunked and hyp_chunk >= n >= 2048
+    elif sampling == "rotation":
+        use_rotation = use_chunked and hyp_chunk >= n
+    else:
+        use_rotation = False
 
     n_valid = max(float(src_mask.sum()), 1.0)
     count = max(int(n_valid), 1)

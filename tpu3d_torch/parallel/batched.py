@@ -11,7 +11,7 @@ instance uses the same seed, which is parity with the reference: it seeds
 mt19937(42) per instance (registration.cpp:235).
 
 ``shard_instances`` (placing the instance axis across devices) is not
-ported (ROADMAP.md queue 1, item 16).
+ported (ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ share a capacity bucket register as one group, member by member.
 ``use_gpu`` puts every tensor on the card (``cuda``) or, when false, on
 the CPU, where each kernel's plain version runs. The multi-device
 ``parallel:`` block is not ported: a mode other than 'off' raises
-``NotImplementedError`` (ROADMAP.md queue 1, item 16). A low-fitness
+``NotImplementedError`` (ROADMAP.md queue 1, item 9). A low-fitness
 member of a sparse group escalates from its own result instead of
 re-running the sparse arm first.
 """
@@ -59,7 +59,7 @@ class Pipeline:
             raise NotImplementedError(
                 f"parallel.mode={config.parallel.mode!r}: multi-device "
                 "registration is not ported yet (ROADMAP.md queue 1, item "
-                "16: multi-GPU); set parallel.mode to 'off'"
+                "9: multi-GPU); set parallel.mode to 'off'"
             )
         self.config = config
         self.viewer: Optional[SceneViewer] = None

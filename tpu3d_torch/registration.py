@@ -3,8 +3,9 @@
 Counterpart of ``tpu3d/registration.py``. Two routes, chosen once per pair
 from the downsampled capacities:
 
-  * reference parity (both below ``FUSED_CAPACITY_THRESHOLD``): brute
-    self-kNN (k=100) shared by k=30 normals and radius-capped FPFH;
+  * reference parity (both below ``FUSED_CAPACITY_THRESHOLD``): one
+    self-kNN (k=100, ``surface_neighbors``: brute, slab or grid) shared by
+    k=30 normals and radius-capped FPFH;
   * at scale: the fused prepare (``ops/fused_features``, K2-K4). When the
     source lies on a CUDA device (or ``prepare_mode='sparse'``), the target
     gets the dense prepare and the source the sparse one, RANSAC runs on
@@ -13,15 +14,19 @@ from the downsampled capacities:
     ``min_fitness`` (``sparse_register_escalated``).
 
 RANSAC uses K5 correspondences and K6 scoring, ICP K7 (K5 below 4,096
-target rows). ``mesh`` is not ported and raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item.
+target rows). ``register_pair_multiscale`` runs RANSAC once at the
+coarsest voxel and ICP level by level on normals-only targets
+(``prepare_icp_target``). ``mesh`` is not ported and raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from tpu3d_torch.config import RegistrationConfig
 from tpu3d_torch.device import launches_kernel
@@ -30,6 +35,7 @@ from tpu3d_torch.ops.fused_features import (
     fused_prepare_features,
     fused_prepare_sparse,
 )
+from tpu3d_torch.ops.grid import build_grid, grid_knn
 from tpu3d_torch.ops.icp import icp_refine
 from tpu3d_torch.ops.neighbors import knn
 from tpu3d_torch.ops.normals import estimate_normals
@@ -38,6 +44,7 @@ from tpu3d_torch.ops.ransac import (
     ransac_registration,
     with_target_operand,
 )
+from tpu3d_torch.ops.slab import build_slab, slab_knn
 from tpu3d_torch.ops.voxel import compact, voxel_downsample
 from tpu3d_torch.types import FPFHFeatures, PointCloud, RegistrationResult
 
@@ -77,10 +84,34 @@ def downsample_bucketed(
     return compact(down, capacity)
 
 
-def surface_neighbors(cloud: PointCloud, k: int = 100):
-    """One exact self-kNN (idx, d2) shared by normals (first 30 columns)
-    and FPFH (all k, radius-gated): the reference's brute findKNN."""
-    return knn(cloud.points, cloud.points, cloud.mask, k=k)
+def surface_neighbors(cloud: PointCloud, radius: float, k: int = 100,
+                      mode: str = "auto"):
+    """One self-kNN (idx, d2) shared by normals (first 30 columns) and FPFH
+    (all k, radius-gated).
+
+    'slab' sorts the cloud by x once and searches one contiguous window per
+    query block (``slab_knn``), the queries being the slab's own sorted
+    points, un-permuted by one scatter: exact within ``radius`` wherever a
+    block's window fits ``slab_knn``'s slice (the block that holds the
+    last valid rows and padding rows does not, as in the JAX package;
+    ROADMAP.md §3, faults). 'grid' is the 27-cell bucket search
+    (``grid_knn``, same semantics). 'brute' is the full exact scan, the
+    reference's findKNN. 'auto': slab from ``FUSED_CAPACITY_THRESHOLD``
+    rows, brute below."""
+    if mode == "auto":
+        mode = "slab" if cloud.capacity >= FUSED_CAPACITY_THRESHOLD else (
+            "brute")
+    if mode == "slab":
+        slab = build_slab(cloud.points, cloud.mask)
+        idx, d2, _ = slab_knn(slab, slab.sorted_points_t.T, radius, k=k)
+        n = slab.sorted_orig.shape[0]
+        inv = torch.empty_like(slab.sorted_orig)
+        inv[slab.sorted_orig] = torch.arange(n, device=inv.device)
+        return idx[inv], d2[inv]
+    if mode == "grid":
+        grid = build_grid(cloud.points, cloud.mask, radius)
+        return grid_knn(grid, cloud.points, k=k)
+    return knn(cloud.points, cloud.points, cloud.mask, k=k, method="exact")
 
 
 def prepare_cloud(
@@ -102,20 +133,35 @@ def prepare_features(
     neighbor_mode: str = "auto",
 ) -> tuple[PointCloud, FPFHFeatures]:
     """Normals + FPFH on a downsampled, compacted cloud: the fused sweeps
-    at scale (or with ``neighbor_mode='fused'``), else the gather route."""
+    at scale (or with ``neighbor_mode='fused'``), else the gather route on
+    the ``surface_neighbors`` of that mode ('auto', 'slab', 'grid',
+    'brute')."""
     radius = float(np.float32(config.voxel_size * 5.0))
     if neighbor_mode == "fused" or (
         neighbor_mode == "auto" and down.capacity >= FUSED_CAPACITY_THRESHOLD
     ):
         return fused_prepare_features(down, radius)
-    if neighbor_mode != "auto":
-        raise NotImplementedError(
-            f"neighbor_mode={neighbor_mode!r} is not ported yet "
-            "(ROADMAP.md queue 1, item 10: gather path for small clouds)"
-        )
-    nbrs = surface_neighbors(down, k=100)
-    down = estimate_normals(down, nbrs, k=30)
-    return down, compute_fpfh(down, radius, nbrs)
+    nbrs = surface_neighbors(down, radius, k=100, mode=neighbor_mode)
+    down = estimate_normals(down, k=30, neighbors=nbrs)
+    return down, compute_fpfh(down, radius, neighbors=nbrs)
+
+
+def prepare_icp_target(
+    cloud: PointCloud,
+    config: RegistrationConfig,
+    with_normals: bool = True,
+) -> PointCloud:
+    """Downsample + normals only: what ICP reads of a target (never its
+    FPFH). ``with_normals=False`` (point-to-point) skips the normals too.
+    The neighbours are the slab search from ``FUSED_CAPACITY_THRESHOLD``
+    rows, brute below."""
+    down = downsample_bucketed(cloud, config)
+    if not with_normals:
+        return down
+    radius = float(np.float32(config.voxel_size * 5.0))
+    mode = "slab" if down.capacity >= FUSED_CAPACITY_THRESHOLD else "brute"
+    nbrs = surface_neighbors(down, radius, k=30, mode=mode)
+    return estimate_normals(down, k=30, neighbors=nbrs)
 
 
 def register_prepared(
@@ -256,7 +302,7 @@ def register_pair(
     if mesh is not None:
         raise NotImplementedError(
             "multi-device registration (mesh) is not ported yet "
-            "(ROADMAP.md queue 1, item 16: multi-GPU)"
+            "(ROADMAP.md queue 1, item 9: multi-GPU)"
         )
     src_down = downsample_bucketed(source, config)
     tgt_down = downsample_bucketed(target, config)
@@ -287,3 +333,57 @@ def register_pair(
     tgt_down, tgt_feat = prepare_features(tgt_down, config, mode)
     return register_prepared(src_down, tgt_down, src_feat, tgt_feat, config,
                              draws=draws)
+
+
+def register_pair_multiscale(
+    source: PointCloud,
+    target: PointCloud,
+    config: Optional[RegistrationConfig] = None,
+    levels: int = 2,
+    scale_step: float = 3.0,
+    draws: Draws | None = None,
+) -> tuple[RegistrationResult, RegistrationResult]:
+    """Coarse-to-fine registration → (refined at the finest level, coarse).
+
+    RANSAC runs once on the clouds prepared at the coarsest voxel
+    (``voxel_size · scale_step^(levels−1)``); ICP then refines level by
+    level down to ``voxel_size``, each level warm-starting the next, on the
+    source downsampled at that voxel against a normals-only target
+    (``prepare_icp_target``). Coarse levels keep matches within one voxel,
+    the finest within ``icp_distance_factor`` voxels. ``draws`` replaces
+    the RANSAC draw stream (see ops/ransac.py)."""
+    if levels < 1:
+        raise ValueError(f"levels must be >= 1, got {levels}")
+    if config is None:
+        config = RegistrationConfig()
+    voxels = [config.voxel_size * scale_step**i
+              for i in reversed(range(levels))]  # coarsest → finest
+
+    coarse_cfg = dataclasses.replace(config, voxel_size=voxels[0])
+    src_cd = downsample_bucketed(source, coarse_cfg)
+    tgt_cd = downsample_bucketed(target, coarse_cfg)
+    mode = resolve_neighbor_mode(src_cd.capacity, tgt_cd.capacity)
+    src_c, sf_c = prepare_features(src_cd, coarse_cfg, mode)
+    tgt_c, tf_c = prepare_features(tgt_cd, coarse_cfg, mode)
+    coarse = ransac_registration(
+        src_c, tgt_c, sf_c, tf_c, voxels[0],
+        max_iterations=config.ransac_max_iterations,
+        confidence=config.ransac_confidence,
+        seed=config.ransac_seed,
+        draws=draws,
+    )
+    T = coarse.transformation
+    refined = coarse
+    for voxel in voxels:
+        lvl_cfg = dataclasses.replace(config, voxel_size=voxel)
+        src_l = downsample_bucketed(source, lvl_cfg)
+        tgt_l = prepare_icp_target(target, lvl_cfg,
+                                   with_normals=config.use_point_to_plane)
+        factor = config.icp_distance_factor if voxel == voxels[-1] else 1.0
+        refined = icp_refine(
+            src_l, tgt_l, T, voxel * factor,
+            max_iterations=config.icp_max_iterations,
+            point_to_plane=config.use_point_to_plane,
+        )
+        T = refined.transformation
+    return refined, coarse
