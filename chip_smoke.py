@@ -129,7 +129,26 @@ Phases, each fatal on failure:
         pass;
      d. RANSAC on phase 4's sparse subset with hyp_chunk 16,384 and
         50,176, early_exit off and sampling 'gather', each refined by ICP
-        through the gate: chunks run and RANSAC ms.
+        through the gate: chunks run and RANSAC ms;
+  8. the sharded stack (``tpu3d_torch.parallel``) on virtual meshes that
+     list cuda:0 several times, so the shards run one after another on
+     the one card (correctness and overhead, not a speedup):
+     a. ``register_pair(..., mesh=)`` on phase 4's pair over 4 shards and
+        over 2: both prepares distributed (``register_pair_sharded``'s
+        ``return_info``), the gate, warm host ms (median of 3), device
+        busy, and K2-K6 and K8 launched in the 4-shard run
+        (``launches_sharded``);
+     b. ``slab2_top1_sharded`` on the 1M scene over 4 shards at r = 2 mm:
+        d2 bit for bit the single-device ``slab2_top1``'s, indices equal
+        wherever the minimum is unique;
+     c. on one shard of 8a: K2-K4 on its halo-extended layout, K5 on its
+        descriptor rows, K6 on a shard's hypothesis slice (6,400 of the
+        25,600-hypothesis round) and K8 on its walk of ICP's queries,
+        each against its plain version (suffix ``_shard``);
+     d. ``Pipeline.run()`` on the bin frame with ``parallel: {mode: on,
+        devices: 4}``, the card seen 4 times: every instance posed through
+        the gate, one sharded registration each;
+     e. ``tpu3d_torch.parallel.dryrun.dryrun_multichip(4)`` (2 x 2 mesh).
   Kernel and plain times are CUDA events, 2 warm runs, median of 5
   (slab_top1 and K8's plain version: 1 warm run, median of 3); beside
   them ``device_ms``, the device time of one call (10 calls queued behind
@@ -163,8 +182,8 @@ Phases, each fatal on failure:
   inside the band that it recomputes in fp32, the share of warp steps
   (8 rows x 32 hypotheses) that hold one, and the elements a warp defers
   per row slice.
-  ``--points``/``--voxel`` shrink phase 4 and ``--scene-points``/
-  ``--instances`` phase 6 for a rehearsal off the card.
+  ``--points``/``--voxel`` shrink phases 4 and 8 and ``--scene-points``/
+  ``--instances`` phases 6 and 8b for a rehearsal off the card.
 
 Output: progress on stderr; on stdout the nvidia-smi line, a JSON line of
 per-kernel results, one JSON line per route, and last the line
@@ -2110,8 +2129,12 @@ def probe_phase(torch, dev):
     wrapper = {"argmin": "row_argmin", "cumsum": "row_cumsum",
                "dot_axis0": "dot_axis0", "transpose": "transpose"}
     entries = []
+    # The one PyTorch call of each function; the cumsum's plain version is
+    # the kernel's order of additions, not torch.cumsum.
+    library = {"cumsum": lambda: torch.cumsum(x, 1)}
     for (name, kern, plain, _), r in zip(probe.cases(dev), results):
         ins = reads.get(name, (x,))
+        lib = library.get(name, plain)
         out = kern()
         # Each input read once, the output written once; the product does
         # 2 operations per term, the others about one per element.
@@ -2127,10 +2150,9 @@ def probe_phase(torch, dev):
             "max_abs_err": r["err"], "err_unit": r["unit"],
             "tolerance": r["tol"], "ms": cuda_ms(torch, kern),
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            # The plain version is the one PyTorch call.
-            "library_ms": plain_ms,
+            "library_ms": cuda_ms(torch, lib),
             "device_ms": per_call_device_ms(torch, kern),
-            "library_device_ms": per_call_device_ms(torch, plain),
+            "library_device_ms": per_call_device_ms(torch, lib),
         })
     return entries
 
@@ -2470,6 +2492,310 @@ def entry_points_phase(torch, np, dev, args, counters):
              "routes": routes}]
 
 
+# --------------------------------------------------------------------------
+# Phase 8: the sharded stack on virtual meshes
+# --------------------------------------------------------------------------
+
+
+def sharded_pair_route(torch, np, dev, n_points, voxel, counters):
+    """8a: ``register_pair(..., mesh=)`` on phase 4's pair over 4 and 2
+    shards of cuda:0. Returns (route, the 4-shard run's launches, the
+    pieces 8c holds kernels at)."""
+    import tpu3d_torch
+    from tpu3d_torch.models.fixtures import make_pair
+    from tpu3d_torch.parallel import mesh as pm
+    from tpu3d_torch.parallel import register_sharded as rs
+
+    src_np, tgt_np, R_true, t_true = make_pair(n_points)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=voxel)
+    src = tpu3d_torch.PointCloud.from_numpy(src_np, device=dev)
+    tgt = tpu3d_torch.PointCloud.from_numpy(tgt_np, device=dev)
+    route = {"route": "sharded register_pair (virtual mesh on cuda:0)",
+             "main_path": "tpu3d_torch.register_pair(..., mesh=)",
+             "fixture": f"make_pair({n_points}), voxel {voxel}",
+             "note": "the shards run one after another on one card: "
+                     "correctness and overhead, not a speedup"}
+    launches_4 = None
+    for n_sh in (4, 2):
+        mesh = pm.make_mesh(devices=[dev] * n_sh)
+        refined, coarse, info = rs.register_pair_sharded(
+            src, tgt, cfg, mesh, return_info=True)
+        log(f"8a {n_sh} shards: {info}")
+        check(info["src_prepare_distributed"]
+              and info["tgt_prepare_distributed"],
+              f"a prepare fell back to one device on {n_sh} shards: {info}")
+
+        def pair(mesh=mesh):
+            return tpu3d_torch.register_pair(src, tgt, cfg, mesh=mesh)
+
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refined, coarse = pair()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts(counters)
+        log(f"8a {n_sh} shards: launches {launches}")
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel did not launch on {n_sh} shards: {launches}")
+        rot_err, trn_err = gate(np, refined, R_true, t_true)
+        times = [first_ms] + host_ms(torch, pair, warm=0, reps=3)[0]
+        busy = device_busy_ms(torch, pair)
+        log(f"8a {n_sh} shards: fitness {float(refined.fitness):.5f}, "
+            f"coarse {float(coarse.fitness):.5f}, pose error rot "
+            f"{rot_err:.2e} trans {trn_err:.2e}; host ms {times}, device "
+            f"busy {busy:.2f} ms")
+        route[f"shards_{n_sh}"] = {
+            "info": info, "launches": launches, "pair_ms": times,
+            "pair_ms_warm_median": statistics.median(times[1:]),
+            "device_busy_ms": busy, "fitness": float(refined.fitness),
+            "coarse_fitness": float(coarse.fitness), "rot_err": rot_err,
+            "trans_err": trn_err,
+        }
+        if n_sh == 4:
+            launches_4 = launches
+            pieces = (mesh, src, tgt, cfg, coarse)
+    return route, launches_4, pieces
+
+
+def sharded_scene_nn(torch, np, dev, n):
+    """8b: the 1M self-join within 2 mm over 4 shards against one device:
+    d2 bit for bit, indices equal wherever the minimum is unique."""
+    from tpu3d_torch.models.fixtures import make_pair
+    from tpu3d_torch.ops import nn_walk
+    from tpu3d_torch.parallel import mesh as pm
+    from tpu3d_torch.parallel import sharded_nn
+
+    radius, block, sub, k_windows = 0.002, 512, 512, 8
+    src_np, _, _, _ = make_pair(n, seed=5)
+    raw = torch.from_numpy(src_np).to(dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    mesh = pm.make_mesh(devices=[dev] * 4)
+    i1, d1 = nn_walk.slab2_top1(raw, mask, raw, mask, radius, block=block,
+                                sub=sub, k_windows=k_windows)
+    sw = sharded_nn.build_walk_sharded(raw, mask, radius, mesh)
+
+    def query():
+        return sharded_nn.slab2_top1_sharded(sw, raw, mask, radius, mesh,
+                                             block=block, sub=sub,
+                                             k_windows=k_windows)
+
+    i4, d4 = query()
+    matched = d1 < 1e29
+    check(torch.equal(matched, d4 < 1e29), "8b: matched rows differ")
+    check(torch.equal(d4[matched], d1[matched]), "8b: d2 differs")
+    differ = (i4 != i1) & matched
+    rows = differ.nonzero()[:, 0]
+    q = raw[rows]
+    # A differing pick must be a tie: its plain d2 equals the other's.
+    tie = torch.equal(((raw[i4[rows].long()] - q) ** 2).sum(1),
+                      ((raw[i1[rows].long()] - q) ** 2).sum(1))
+    check(tie, "8b: indices differ where the minimum is unique")
+    times = host_ms(torch, query, warm=0, reps=3)[0]
+    one = host_ms(torch, lambda: nn_walk.slab2_top1_indexed(
+        nn_walk.build_walk_target(raw, mask, radius), raw, mask, radius,
+        block=block, sub=sub, k_windows=k_windows), warm=0, reps=3)[0]
+    log(f"8b: {int(matched.sum())} of {n} matched, {rows.numel()} tie "
+        f"picks differ; 4 shards {statistics.median(times):.2f} ms/pass, "
+        f"one device (with its build) {statistics.median(one):.2f} ms")
+    return {"route": "sharded slab2_top1, 1M scene, 4 shards of cuda:0",
+            "rows": n, "matched": int(matched.sum()),
+            "tie_picks_differing": int(rows.numel()),
+            "pass_ms_4_shards": times, "pass_ms_one_device_with_build": one}
+
+
+def sharded_kernels(torch, np, pieces, entries):
+    """8c: on shard 1 of 8a's 4-shard run, K2-K4 (its halo-extended
+    layout), K5 (its descriptor rows), K6 (one shard's hypothesis slice)
+    and K8 (its walk of ICP's queries at the coarse pose) against their
+    plain versions."""
+    from tpu3d_torch import registration as reg
+    from tpu3d_torch.ops import (
+        features,
+        fused_features,
+        nn,
+        nn_walk,
+        ransac,
+        ransac_score,
+    )
+    from tpu3d_torch.parallel import prepare_sharded as ps
+    from tpu3d_torch.parallel import ransac_sharded as rsh
+    from tpu3d_torch.parallel import register_sharded as rs
+    from tpu3d_torch.types import PointCloud
+
+    mesh, src, tgt, cfg, coarse = pieces
+    e2, e3, e4, k5, k6, k8 = entries
+    voxel = cfg.voxel_size
+    n_sh, s = 4, 1
+    radius = float(np.float32(voxel * 5.0))
+    r2 = float(np.float32(radius) * np.float32(radius))
+    sd = reg.downsample_bucketed(src, cfg)
+    td = reg.downsample_bucketed(tgt, cfg)
+    # K2-K4: shard 1's [left halo | own | right halo] rows (a contiguous
+    # run of the x-partition for a middle shard).
+    pts, msk, _ = ps.x_partition(td.points, td.mask, n_sh)
+    sr = pts.shape[0] // n_sh
+    halo = min(rs.default_halo(td, voxel), sr)
+    loc = PointCloud(points=pts[s * sr - halo:(s + 1) * sr + halo],
+                     mask=msk[s * sr - halo:(s + 1) * sr + halo])
+    al, lo, ln = fused_features.aligned_layout(loc, radius, 128)
+    prepare_sweeps(torch, features, fused_features, al, lo, (ln, ln, ln),
+                   128, r2, (e2, e3, e4), "_shard")
+    # K5: the corr_cap subset of the source's descriptors against the
+    # target's shard rows.
+    sp, sf, _ = rs.prepare_features_sharded(sd, cfg, mesh)
+    tp, tf, _ = rs.prepare_features_sharded(td, cfg, mesh)
+    tp, tf = rs.pad_cloud_to_multiple(tp, tf, n_sh)
+    sub = [ransac.strided_rows(x, 8192)
+           for x in (sp.points, sp.mask, sf.descriptors)]
+    tr = tf.descriptors.shape[0] // n_sh
+    nn_phase(torch, nn, sub[2], sub[1], tf.descriptors[s * tr:(s + 1) * tr],
+             tf.mask[s * tr:(s + 1) * tr], "_shard", k5)
+    # K6: a shard's slice of the first round, its estimate and finalists.
+    corr = rsh.feature_correspondences_sharded(
+        type(sf)(sub[2], sub[1]), tf, mesh).long()
+    p, q = sub[0], tp.points[corr]
+    count = int(sub[1].sum())
+    feat, pq = ransac.build_scoring_factors(p, q, sub[1])
+    table = ransac.build_rotation_table(torch.cat([p, q], 1), sub[1], count)
+    iters = cfg.ransac_max_iterations
+    hyp_l = -(-ransac.hypothesis_chunk(iters) // n_sh)
+    draw = ransac.torch_draws(cfg.ransac_seed)
+    w16t, tn, _, _, _ = ransac.solve_rotation_chunk(
+        lambda e: draw(s, e), hyp_l, 0, table, count, iters)
+    feat_e, pq_e = ransac.build_scoring_factors(
+        *(ransac.strided_rows(x, 2048) for x in (p, q, sub[1])))
+    thr2 = float((np.float32(voxel) * np.float32(1.5)) ** 2)
+    score_phase(torch, ransac_score, (feat_e, pq_e, w16t, tn, thr2),
+                "_shard", k6)
+    score_phase(torch, ransac_score,
+                (feat, pq, w16t[:, :32].contiguous(), tn[:32], thr2),
+                "_shard_finalists", k6)
+    # K8: ICP's first correspondence pass on shard 1 of the target.
+    thr = float(np.float32(voxel * cfg.icp_distance_factor))
+    wt = nn_walk.build_walk_target(tp.points[s * tr:(s + 1) * tr],
+                                   tp.mask[s * tr:(s + 1) * tr], thr)
+    P = sd.points @ coarse.transformation[:3, :3].T \
+        + coarse.transformation[:3, 3]
+    q4, wlo, wln, _ = nn_walk.walk_operands(wt, P, sd.mask, thr, 128, 10)
+    walk_phase(torch, nn_walk, q4, wt.packed, wlo, wln,
+               float(np.float32(thr) * np.float32(thr)), 128, 256,
+               "_shard", k8)
+    return {"shard": s, "of": n_sh, "halo": halo, "shard_rows": sr,
+            "layout_blocks": int(lo.shape[0]), "hypotheses": hyp_l}
+
+
+def sharded_bin_frame(torch, np, counters):
+    """8d: ``Pipeline.run()`` on the bin frame with ``parallel: {mode: on,
+    devices: 4}`` and the card seen 4 times."""
+    import tempfile
+
+    import cv2
+
+    from tpu3d_torch.config import PipelineConfig
+    from tpu3d_torch.models.fixtures import bin_frame
+    from tpu3d_torch.models.ply import save_ply
+    from tpu3d_torch.ops import deproject, depth
+    from tpu3d_torch.parallel import mesh as pm
+    from tpu3d_torch.pipeline import pipeline as pl
+
+    frame, K = bin_frame()
+    height, width = frame.shape
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PipelineConfig()
+        cfg.use_camera = cfg.use_robot = False
+        cfg.visualization = "none"
+        cfg.camera.width, cfg.camera.height = width, height
+        cfg.depth.scale_to_meters = 10000.0
+        cfg.depth.bilateral_filter = True
+        cfg.registration.voxel_size = 0.002
+        cfg.parallel.mode, cfg.parallel.devices = "on", 4
+        cfg.camera_extrinsics = np.eye(4, dtype=np.float32)
+        cfg.dummy_depth_path = os.path.join(tmp, "bin_depth.png")
+        cfg.dummy_rgb_path = os.path.join(tmp, "bin_rgb.png")
+        cfg.segmentation.masks_input_dir = os.path.join(tmp, "bin_masks")
+        cfg.reference_model_path = os.path.join(tmp, "bin_frame.ply")
+        check(cv2.imwrite(cfg.dummy_depth_path, frame)
+              and cv2.imwrite(cfg.dummy_rgb_path,
+                              np.full((height, width, 3), 90, np.uint8)),
+              "could not write the frame's PNGs")
+        os.makedirs(cfg.segmentation.masks_input_dir, exist_ok=True)
+        masks = bin_masks(np, width, height)
+        for i, m in enumerate(masks):
+            cv2.imwrite(os.path.join(cfg.segmentation.masks_input_dir,
+                                     f"mask_{i}.png"), m)
+        pm.see_first_device(4, "cuda")
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                pipe = pl.Pipeline(cfg, sleep_fn=lambda s: None)
+            check(pipe._mesh is not None and pipe._mesh.devices.size == 4,
+                  f"the parallel block gave no 4-shard mesh: {pipe._mesh}")
+            d_m = depth.depth_preprocess(
+                torch.from_numpy(frame.astype(np.float32)).to(pipe.device),
+                None, cfg.depth.scale_to_meters)
+            cloud = deproject.deproject(d_m, None, torch.from_numpy(K),
+                                        cfg.depth.clipping_max)
+            save_ply(cfg.reference_model_path,
+                     cloud.points[cloud.mask].cpu().numpy())
+            probe = RunProbe(torch, pl, pipe)
+            reset_counts(counters)
+            waypoints, first_ms, _ = probe.run()
+            launches = launch_counts(counters)
+            poses = probe.poses
+            check(len(poses) == len(masks)
+                  and all(p is not None for p in poses),
+                  "8d: an instance has no pose")
+            check(pipe._sharded_registrations == len(masks),
+                  f"8d: {pipe._sharded_registrations} sharded "
+                  f"registrations for {len(masks)} instances")
+            check(pipe._degraded == 0, f"8d: {pipe._degraded} errors")
+            errs = []
+            for T in poses:
+                rot = float(np.abs(T[:3, :3] - np.eye(3)).max())
+                trn = float(np.abs(T[:3, 3]).max())
+                errs.append((rot, trn))
+                check(np.isfinite(T).all() and rot < 0.02 and trn < 0.005,
+                      f"8d: quality gate failed: {rot}, {trn}")
+            pipe._sharded_registrations = 0
+            warm = probe.run()[1]
+        finally:
+            pm.see_first_device(0, "cuda")
+    results = sorted(pipe.instance_results, key=lambda r: r["instance_id"])
+    log(f"8d: launches {launches}, pose errors {errs}, cold {first_ms:.1f} "
+        f"ms, warm {warm:.1f} ms")
+    return {"route": "pipeline, bin frame, parallel: {mode: on, devices: 4}"
+                     " (cuda:0 seen 4 times)",
+            "sharded_registrations": len(masks), "launches": launches,
+            "pose_errors": errs,
+            "fitness": [r["fitness"] for r in results],
+            "pipeline_ms_cold": first_ms, "pipeline_ms_warm": warm}
+
+
+def sharded_phase(torch, np, dev, args, entries, counters):
+    """Phase 8 (8a-8e, see the module docstring). ``entries``: the kernels
+    line's K2, K3, K4, K5, K6 and K8 entries; ``counters`` their
+    wrappers by name."""
+    from tpu3d_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    pair_route, launches, pieces = sharded_pair_route(
+        torch, np, dev, args.points, args.voxel, counters)
+    for e, name in zip(entries, counters):
+        e["launches_sharded"] = launches[name]
+    pair_route["shard_kernels"] = sharded_kernels(torch, np, pieces, entries)
+    nn_route = sharded_scene_nn(torch, np, dev, args.scene_points)
+    frame_route = sharded_bin_frame(
+        torch, np, {k: f for k, f in counters.items()})
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        facts = dryrun.dryrun_multichip(4, device_type="cuda",
+                                        devices=[dev] * 4)
+    dry = {"route": "dryrun_multichip(4) on cuda:0 seen 4 times",
+           "facts": facts, "ms": (time.perf_counter() - t1) * 1e3}
+    log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+    return [pair_route, nn_route, frame_route, dry]
+
+
 def run(args):
     import numpy as np
     import torch
@@ -2557,6 +2883,14 @@ def run(args):
                                if k != "K9"})
     for entry, name in zip(sweeps + [k5, k6, k7], counters):
         entry["launches_multiscale"] = entry_routes[0]["launches"][name]
+    card_states["phase 8"] = card_state()
+    from tpu3d_torch.ops import nn_walk
+
+    sharded_counters = {k: counters[k] for k in ("K2", "K3", "K4", "K5",
+                                                 "K6")}
+    sharded_counters["K8"] = nn_walk.top1_walk
+    sharded_routes = sharded_phase(torch, np, dev, args,
+                                   sweeps + [k5, k6, k8], sharded_counters)
     k7m["launches_pipeline_knobs"] = bin_route["knobs"]["launches"]["K7"]
     kernels = kernels + [k7m]
     for e in kernels + [k8] + probe_entries:
@@ -2577,7 +2911,7 @@ def run(args):
     log(f"card state by phase: {card_states}")
     scene_routes[-1]["card_states"] = card_states
     for route in ([ref_route, scale_route, cli, bin_route, host]
-                  + scene_routes + entry_routes):
+                  + scene_routes + entry_routes + sharded_routes):
         print(json.dumps(route), flush=True)
     return {
         "ok": True,

@@ -1162,3 +1162,94 @@ def test_icp_grid_backend_on_card(dev):
     n = int(sd.mask.sum())
     assert round(float(card.fitness) * n) == round(float(cpu.fitness) * n)
     assert float(cpu.fitness) > 0.9
+
+
+@pytest.mark.parametrize("rows,cols", [(8, 256), (5, 33), (3, 1), (64, 1000)])
+def test_probe_cumsum_bit_for_bit(dev, rows, cols):
+    """The warp-scan cumsum equals its plain version (the same order of
+    additions) bit for bit, ragged last pieces and signed zeros
+    included."""
+    g = torch.Generator().manual_seed(rows * cols)
+    x = torch.randn(rows, cols, generator=g)
+    x[0, :3] = -0.0
+    assert torch.equal(probe.row_cumsum(x.to(dev)).cpu(),
+                       probe.row_cumsum_plain(x))
+    for n in (1, 31, 32, 33, 128):
+        y = torch.rand(n, n, generator=g)
+        assert torch.equal(probe.transpose(y.to(dev)).cpu(),
+                           probe.transpose_plain(y))
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_nn_on_virtual_mesh_equals_one_device(dev, n_shards):
+    """K5 per target shard and K8 per shard's walk on a mesh that lists
+    the card ``n_shards`` times: the brute indices and d2 equal the
+    single-device K5's; the walk's d2 equal bit for bit and its indices
+    wherever the minimum is unique; rows duplicated across a shard seam
+    go to the lower row."""
+    from tpu3d_torch.parallel import make_mesh
+    from tpu3d_torch.parallel import sharded_nn
+
+    mesh = make_mesh(devices=[dev] * n_shards)
+    g = torch.Generator().manual_seed(n_shards)
+    m = 4096
+    t = torch.rand(m, 3, generator=g) * 0.2
+    sr = m // n_shards
+    for s in range(1, n_shards):
+        t[s * sr] = t[s * sr - 1]
+    mask = torch.rand(m, generator=g) > 0.05
+    mask[[s * sr - 1 for s in range(1, n_shards)]] = True
+    mask[[s * sr for s in range(1, n_shards)]] = True
+    q = torch.cat([t[[s * sr for s in range(1, n_shards)]],
+                   torch.rand(1000, 3, generator=g) * 0.2])
+    qm = torch.ones(q.shape[0], dtype=torch.bool)
+    t, mask, q, qm = (x.to(dev) for x in (t, mask, q, qm))
+    i1, d1 = nn.nearest_neighbor(q, t, mask)
+    i4, d4 = sharded_nn.nearest_neighbor_sharded(q, t, mask, mesh)
+    assert torch.equal(i4, i1) and torch.equal(d4, d1)
+    assert i4[:n_shards - 1].tolist() == [s * sr - 1
+                                          for s in range(1, n_shards)]
+    r = 0.01
+    w1, wd1 = nn_walk.slab2_top1(q, qm, t, mask, r)
+    sw = sharded_nn.build_walk_sharded(t, mask, r, mesh)
+    w4, wd4 = sharded_nn.slab2_top1_sharded(sw, q, qm, r, mesh)
+    hit = wd1 < 1e29
+    assert torch.equal(hit, wd4 < 1e29) and int(hit.sum()) > 100
+    assert torch.equal(wd4[hit], wd1[hit])
+    rows = ((w4 != w1) & hit).nonzero()[:, 0]
+    assert torch.equal(((t[w4[rows].long()] - q[rows]) ** 2).sum(1),
+                       ((t[w1[rows].long()] - q[rows]) ** 2).sum(1))
+
+
+def test_sharded_prepare_on_virtual_mesh_equals_one_device(dev):
+    """The halo-exchange prepare (K2-K4 per shard) on 4 shards of the
+    card: ok, every valid row's normal within |cos| >= 0.9999 of the
+    single-device prepare's on the same partitioned rows and the
+    descriptors' correspondences agreeing on >= 91 %; a K2-K4 launch on
+    each shard."""
+    from tpu3d_torch.parallel import make_mesh
+    from tpu3d_torch.parallel import prepare_sharded as ps
+
+    pts_np, _, _, _ = make_pair(20000, voxel=0.004)
+    cloud = tpu3d_torch.PointCloud.from_numpy(pts_np, capacity=20480,
+                                              device="cpu")
+    r = float(np.float32(0.02))
+    p, m, _ = ps.x_partition(cloud.points, cloud.mask, 4)
+    before = [f.launches for f in (features.moments_sweep,
+                                   features.spfh_sweep, features.fpfh_sweep)]
+    card = ps.fused_prepare_sharded(p.to(dev), m.to(dev), r,
+                                    make_mesh(devices=[dev] * 4), halo=2048)
+    after = [f.launches for f in (features.moments_sweep,
+                                  features.spfh_sweep, features.fpfh_sweep)]
+    assert bool(card[2])
+    assert [a - b for a, b in zip(after, before)] == [4, 4, 4]
+    one_c, one_f = fused_features.fused_prepare_features(
+        tpu3d_torch.PointCloud(points=p.to(dev), mask=m.to(dev)), r)
+    v = m.to(dev)
+    cos = (card[0].normals[v] * one_c.normals[v]).sum(1).abs()
+    assert float(cos.min()) >= 0.9999
+    idx, _ = nn.nearest_neighbor(card[1].descriptors[v], one_f.descriptors[v],
+                                 torch.ones(int(v.sum()), dtype=torch.bool,
+                                            device=dev))
+    agree = (idx == torch.arange(int(v.sum()), device=dev)).float().mean()
+    assert float(agree) >= 0.91

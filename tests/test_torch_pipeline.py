@@ -181,12 +181,15 @@ def test_package_exports_match_jax():
     import tpu3d_torch.ops
 
     assert set(tpu3d.__all__) == set(tpu3d_torch.__all__)
-    # Not in the port: the batched SVD kabsch (ROADMAP queue 1, item 8),
-    # the TPU's NN entry points (K5 is ops.nn.nearest_neighbor), and
-    # deproject, whose name would hide its module.
+    # Not in the port: the TPU's NN entry points (K5 is
+    # ops.nn.nearest_neighbor), and deproject, whose name would hide its
+    # module.
     assert set(tpu3d.ops.__all__) - set(tpu3d_torch.ops.__all__) == {
-        "kabsch", "nearest_neighbor_pallas", "nearest_neighbor_xla",
-        "deproject"}
+        "nearest_neighbor_pallas", "nearest_neighbor_xla", "deproject"}
+    import tpu3d.parallel
+    import tpu3d_torch.parallel
+
+    assert tpu3d_torch.parallel.__all__ == tpu3d.parallel.__all__
     _configs_equal(tpu3d_torch.PipelineConfig(), tpu3d.PipelineConfig())
     _configs_equal(tpu3d_torch.load_config("config/pipeline_config.yaml"),
                    tpu3d.load_config("config/pipeline_config.yaml"))
@@ -367,13 +370,15 @@ def test_dedup_matches_jax():
             np.testing.assert_array_equal(a, b)
 
 
-def test_device_follows_use_gpu():
+def test_device_follows_use_gpu(capsys):
     """State goes on the card unless the config says ``use_gpu: false``;
-    multi-device routing is not ported and says so."""
+    a ``parallel:`` block builds its mesh over the devices of that type
+    (one CPU device: single-device, as JAX's 'on' with one device)."""
     cfg = _demo(PipelineConfig())
     assert Pipeline(cfg).device.type == "cuda"
     cfg.use_gpu = False
     assert Pipeline(cfg).device.type == "cpu"
     cfg.parallel.mode = "on"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Pipeline(cfg)
+    pipe = Pipeline(cfg)
+    assert pipe._mesh is None
+    assert "only one device is visible" in capsys.readouterr().out

@@ -1,10 +1,11 @@
 """End-to-end port parity: ``tpu3d_torch.register_pair`` against the JAX
 ``register_pair`` on the bench fixture, with the JAX draw stream replayed,
 on the reference-parity route and on the sparse arm (with its escalation),
-and the routes the port does not hold yet (multi-device registration)."""
+and the ``mesh`` argument's routing."""
 
 import numpy as np
 import pytest
+import torch
 
 import tpu3d
 import tpu3d_torch
@@ -136,8 +137,17 @@ def test_unported_routes_raise():
     s = tpu3d_torch.PointCloud.from_numpy(src, device="cpu")
     g = tpu3d_torch.PointCloud.from_numpy(tgt, device="cpu")
     cfg = tpu3d_torch.RegistrationConfig(voxel_size=VOXEL)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpu3d_torch.register_pair(s, g, cfg, mesh=object())
+    # Every route is ported: a mesh of one device is the single-device
+    # path, one of two the sharded stack (tests/test_torch_parallel_*.py).
+    from tpu3d_torch.parallel import make_mesh
+
+    one, _ = tpu3d_torch.register_pair(s, g, cfg,
+                                       mesh=make_mesh(devices=["cpu"]))
+    ref, _ = tpu3d_torch.register_pair(s, g, cfg)
+    assert torch.equal(one.transformation, ref.transformation)
+    two, _ = tpu3d_torch.register_pair(s, g, cfg,
+                                       mesh=make_mesh(devices=["cpu"] * 2))
+    assert torch.isfinite(two.transformation).all()
     # An explicit neighbour mode of the gather route is ported: it returns
     # normals and descriptors for every row.
     down = tpu3d_torch.registration.downsample_bucketed(s, cfg)

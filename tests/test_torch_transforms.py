@@ -73,3 +73,33 @@ def test_kabsch_quat_matches_jax(rng, degenerate):
                                       np.tile(np.eye(3), (300, 1, 1)))
     else:
         np.testing.assert_allclose(Rg.numpy(), R, atol=1e-4)
+
+
+@pytest.mark.parametrize("weighted,reflect", [(False, False), (True, False),
+                                              (False, True)])
+def test_kabsch_matches_jax(rng, weighted, reflect):
+    """The batched weighted SVD Kabsch against the JAX package's, on
+    (8, 50)-point batches; ``reflect`` mirrors the targets, so the
+    reflection fix decides every rotation."""
+    B, n = 8, 50
+    src = rng.uniform(-0.3, 0.3, (B, n, 3)).astype(np.float32)
+    R = _rotations(rng, B)
+    tgt = (np.einsum("bij,bkj->bki", R, src)
+           + rng.uniform(-0.1, 0.1, (B, 1, 3))
+           + rng.normal(scale=1e-3, size=(B, n, 3))).astype(np.float32)
+    if reflect:
+        tgt[..., 2] *= -1.0
+    w = (rng.uniform(0.0, 1.0, (B, n)).astype(np.float32)
+         if weighted else None)
+    tw = None if w is None else torch.from_numpy(w)
+    jw = None if w is None else jnp.asarray(w)
+    Rg, tg = tt.kabsch(torch.from_numpy(src), torch.from_numpy(tgt), tw)
+    Rj, tj = jt.kabsch(jnp.asarray(src), jnp.asarray(tgt), jw)
+    np.testing.assert_allclose(Rg.numpy(), np.asarray(Rj), atol=2e-5)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(tj), atol=2e-5)
+    det = np.linalg.det(Rg.numpy().astype(np.float64))
+    np.testing.assert_allclose(det, 1.0, atol=1e-5)
+    if not reflect:
+        np.testing.assert_allclose(Rg.numpy(), R, atol=1e-2)
+    from tpu3d_torch.ops import kabsch
+    assert kabsch is tt.kabsch

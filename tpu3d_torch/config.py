@@ -89,12 +89,11 @@ class RegistrationConfig:
 
 @dataclasses.dataclass
 class ParallelConfig:
-    """Multi-device routing (an extension — the reference is single-GPU),
-    kept so the JAX package's config files load unchanged. ``mode`` 'on'
-    or 'auto' selects the sharded registration stack over ``devices``
-    devices with a ``halo``-row prepare strip in the JAX package; the port
-    does not route yet, and a mode other than 'off' raises in ``Pipeline``
-    (ROADMAP.md queue 1, item 9)."""
+    """Multi-device routing (an extension — the reference is single-GPU).
+    ``mode`` 'on' or 'auto' makes ``Pipeline`` build a 1-D mesh over
+    ``devices`` devices (0: every visible one; fewer than 2 runs
+    single-device) and route every registration through the sharded stack
+    with a ``halo``-row prepare strip (0: the radius-aware default)."""
 
     mode: str = "off"  # off|on|auto
     devices: int = 0

@@ -10,10 +10,12 @@
 //                 accurate CUDA math library, no fast-math intrinsics);
 //   row argmin    one block per row, a shared-memory tree over
 //                 (value, index) pairs; ties go to the lower index;
-//   row cumsum    one thread per row, in column order;
+//   row cumsum    one warp per row, a shuffle scan per 32-wide piece and
+//                 a carry between pieces (row_cumsum_plain's order);
 //   dot axis 0    out[p, q] = sum_k a[k, p] * b[q, k], k ascending, one
 //                 fmaf per term (the probe's axis-0 dot_general);
-//   transpose     a square matrix through 32 x 33 shared-memory tiles.
+//   transpose     a square matrix through 32 x 33 shared-memory tiles, one
+//                 element a thread.
 // Each is a few KB: launch latency bounds them all.
 
 #include <cuda_runtime.h>
@@ -71,15 +73,29 @@ argmin_kernel(const float* __restrict__ x, int cols, int* __restrict__ out) {
   if (threadIdx.x == 0) out[blockIdx.x] = arg[0];
 }
 
-__global__ void cumsum_kernel(const float* __restrict__ x, int rows, int cols,
-                              float* __restrict__ out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
+// One warp a row: each 32-wide piece is scanned by five shuffle-up adds
+// (lane i adds lane i - d for d = 1, 2, 4, 8, 16), then the carry, the last
+// lane's sum of the piece before, is added and passed on. Columns past the
+// row's end load 0 and feed no valid lane.
+__global__ void __launch_bounds__(kThreads)
+cumsum_kernel(const float* __restrict__ x, int rows, int cols,
+              float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (r >= rows) return;  // whole warps leave together
   const size_t base = static_cast<size_t>(r) * cols;
-  float s = 0.0f;
-  for (int c = 0; c < cols; ++c) {
-    s = __fadd_rn(s, x[base + c]);
-    out[base + c] = s;
+  float carry = 0.0f;
+  for (int c0 = 0; c0 < cols; c0 += 32) {
+    const int c = c0 + lane;
+    float v = c < cols ? x[base + c] : 0.0f;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v = __fadd_rn(v, u);
+    }
+    v = __fadd_rn(v, carry);
+    if (c < cols) out[base + c] = v;
+    carry = __shfl_sync(0xffffffffu, v, 31);
   }
 }
 
@@ -98,21 +114,24 @@ __global__ void dot_axis0_kernel(const float* __restrict__ a,
   out[i] = acc;
 }
 
-__global__ void transpose_kernel(const float* __restrict__ x, int n,
-                                 float* __restrict__ out) {
-  __shared__ float tile[kTile][kTile + 1];  // +1: no bank conflicts
+// One element a thread: a (32, 32) block stages its 32 x 32 tile in shared
+// memory padded to 33 columns (the column read hits 32 banks), then writes
+// the transposed tile row by row, coalesced both ways.
+__global__ void __launch_bounds__(kTile * kTile)
+transpose_kernel(const float* __restrict__ x, int n, float* __restrict__ out) {
+  __shared__ float tile[kTile][kTile + 1];
   const int bx = blockIdx.x * kTile;
   const int by = blockIdx.y * kTile;
-  for (int dy = threadIdx.y; dy < kTile; dy += blockDim.y) {
-    const int r = by + dy;
-    const int c = bx + threadIdx.x;
-    if (r < n && c < n) tile[dy][threadIdx.x] = x[static_cast<size_t>(r) * n + c];
+  int r = by + threadIdx.y;
+  int c = bx + threadIdx.x;
+  if (r < n && c < n) {
+    tile[threadIdx.y][threadIdx.x] = x[static_cast<size_t>(r) * n + c];
   }
   __syncthreads();
-  for (int dy = threadIdx.y; dy < kTile; dy += blockDim.y) {
-    const int r = bx + dy;
-    const int c = by + threadIdx.x;
-    if (r < n && c < n) out[static_cast<size_t>(r) * n + c] = tile[threadIdx.x][dy];
+  r = bx + threadIdx.y;
+  c = by + threadIdx.x;
+  if (r < n && c < n) {
+    out[static_cast<size_t>(r) * n + c] = tile[threadIdx.x][threadIdx.y];
   }
 }
 
@@ -145,7 +164,8 @@ extern "C" int tpu3d_probe_argmin(const void* x, int rows, int cols,
 extern "C" int tpu3d_probe_cumsum(const void* x, int rows, int cols,
                                   void* out, void* stream) {
   if (rows > 0 && cols > 0) {
-    cumsum_kernel<<<(rows + 31) / 32, 32, 0,
+    constexpr int kRowsPerBlock = kThreads / 32;
+    cumsum_kernel<<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), rows, cols, static_cast<float*>(out));
   }
@@ -170,7 +190,7 @@ extern "C" int tpu3d_probe_transpose(const void* x, int n, void* out,
                                      void* stream) {
   if (n > 0) {
     const dim3 grid((n + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-    transpose_kernel<<<grid, dim3(kTile, 8), 0,
+    transpose_kernel<<<grid, dim3(kTile, kTile), 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), n, static_cast<float*>(out));
   }

@@ -7,6 +7,7 @@ tensor takes the kernel's plain PyTorch version, anything else raises.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -23,6 +24,16 @@ def launches_kernel(*tensors: torch.Tensor) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"unsupported device mix {sorted(kinds)}")
+
+
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)`` for a CUDA device, else nothing. Every
+    kernel wrapper launches under it: a C entry point launches on the host
+    thread's current device, which must be the one its tensors and stream
+    lie on (a mesh's shards lie on several)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 @functools.lru_cache(maxsize=None)

@@ -18,6 +18,7 @@ from tpu3d_torch.ops.ransac import feature_correspondences, ransac_registration
 from tpu3d_torch.ops.transforms import (
     euler_xyz_to_matrix,
     invert_transform,
+    kabsch,
     make_transform,
     matrix_to_rpy_zyx,
     transform_points,
@@ -34,6 +35,7 @@ __all__ = [
     "feature_correspondences",
     "icp_refine",
     "invert_transform",
+    "kabsch",
     "knn",
     "make_transform",
     "matrix_to_rpy_zyx",

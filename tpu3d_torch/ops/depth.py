@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from tpu3d_torch import build
-from tpu3d_torch.device import launches_kernel
+from tpu3d_torch.device import launches_kernel, on_device
 
 _BF_MAX_RADIUS = 5
 
@@ -86,10 +86,11 @@ def bilateral_filter(
     inv_s2, inv_r2 = _weights(sigma_spatial, sigma_range)
     src = depth.contiguous()
     out = torch.empty_like(src)
-    rc = build.library().tpu3d_bilateral_filter(
-        src.data_ptr(), out.data_ptr(), h, w, bf_radius(sigma_spatial),
-        inv_s2, inv_r2, torch.cuda.current_stream(src.device).cuda_stream,
-    )
+    with on_device(src.device):
+        rc = build.library().tpu3d_bilateral_filter(
+            src.data_ptr(), out.data_ptr(), h, w, bf_radius(sigma_spatial),
+            inv_s2, inv_r2, torch.cuda.current_stream(src.device).cuda_stream,
+        )
     build.check(rc, "tpu3d_bilateral_filter")
     build.count_launch(bilateral_filter)
     return out

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from tpu3d_torch import build
-from tpu3d_torch.device import launches_kernel, sm_count
+from tpu3d_torch.device import launches_kernel, on_device, sm_count
 from tpu3d_torch.ops.normals import (
     smallest_eigvec_3x3_planes_newton,
     sqrt_rn,
@@ -138,12 +138,13 @@ def _launch(fn_name, q8, packed, lo, ln, block, plan, r2, out, *extra):
     if any(x.dtype != torch.float32 for x in fins):
         raise TypeError(f"{fn_name} takes float32 planes")
     ints = [x.to(torch.int32).contiguous() for x in (lo, ln)]
-    rc = getattr(build.library(), fn_name)(
-        *(x.data_ptr() for x in fins), *(x.data_ptr() for x in ints),
-        q8.shape[1], lo.shape[0], block, *(int(x) for x in plan), float(r2),
-        *extra, out.data_ptr(),
-        torch.cuda.current_stream(q8.device).cuda_stream,
-    )
+    with on_device(q8.device):
+        rc = getattr(build.library(), fn_name)(
+            *(x.data_ptr() for x in fins), *(x.data_ptr() for x in ints),
+            q8.shape[1], lo.shape[0], block, *(int(x) for x in plan), float(r2),
+            *extra, out.data_ptr(),
+            torch.cuda.current_stream(q8.device).cuda_stream,
+        )
     build.check(rc, fn_name)
 
 
@@ -445,12 +446,13 @@ def fpfh_sweep(q8, packed36, lo, ln, r2, block, sub=None, blocks=None):
     if any(x.dtype != torch.float32 for x in fins):
         raise TypeError("tpu3d_fpfh_sweep takes float32 planes")
     ints = [x.to(torch.int32).contiguous() for x in (lo, ln)]
-    rc = build.library().tpu3d_fpfh_sweep(
-        *(x.data_ptr() for x in fins), *(x.data_ptr() for x in ints),
-        0 if blocks is None else blocks.data_ptr(), mp, nblocks, block,
-        slices, warps, float(r2), out.data_ptr(),
-        torch.cuda.current_stream(q8.device).cuda_stream,
-    )
+    with on_device(q8.device):
+        rc = build.library().tpu3d_fpfh_sweep(
+            *(x.data_ptr() for x in fins), *(x.data_ptr() for x in ints),
+            0 if blocks is None else blocks.data_ptr(), mp, nblocks, block,
+            slices, warps, float(r2), out.data_ptr(),
+            torch.cuda.current_stream(q8.device).cuda_stream,
+        )
     build.check(rc, "tpu3d_fpfh_sweep")
     build.count_launch(fpfh_sweep)
     return out

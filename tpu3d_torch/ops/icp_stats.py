@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from tpu3d_torch import build
-from tpu3d_torch.device import launches_kernel
+from tpu3d_torch.device import launches_kernel, on_device
 
 PARTIAL_WIDTH = 32
 STATS_WIDTH = 44
@@ -199,13 +199,14 @@ def _launch(src, qmask, packed, sorted_x, T, radius, thr2, block, mode,
     key = (src.device.index, stream.cuda_stream)
     if key not in _COUNTERS:
         _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=src.device)
-    rc = build.library().tpu3d_icp_p2plane_stats(
-        *(x.data_ptr() for x in fins), packed.shape[1],
-        src.shape[0] // block, block,
-        ctypes.cast(host, ctypes.c_void_p).value, float(radius), float(thr2),
-        mode, *(0 if x is None else x.data_ptr() for x in outs),
-        _COUNTERS[key].data_ptr(), stream.cuda_stream,
-    )
+    with on_device(src.device):
+        rc = build.library().tpu3d_icp_p2plane_stats(
+            *(x.data_ptr() for x in fins), packed.shape[1],
+            src.shape[0] // block, block,
+            ctypes.cast(host, ctypes.c_void_p).value, float(radius), float(thr2),
+            mode, *(0 if x is None else x.data_ptr() for x in outs),
+            _COUNTERS[key].data_ptr(), stream.cuda_stream,
+        )
     build.check(rc, "tpu3d_icp_p2plane_stats")
 
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from tpu3d_torch import build
-from tpu3d_torch.device import launches_kernel
+from tpu3d_torch.device import launches_kernel, on_device
 
 _SENTINEL = 1.0e6
 _MAX_D = 36
@@ -132,11 +132,12 @@ def _fp32_kernel(queries, targets, target_mask):
     mask_u8 = target_mask.to(torch.uint8).contiguous()
     idx = torch.empty((q,), dtype=torch.int32, device=queries.device)
     d2 = torch.empty((q,), dtype=torch.float32, device=queries.device)
-    err = build.library().tpu3d_nn_top1(
-        queries.data_ptr(), targets.data_ptr(), mask_u8.data_ptr(),
-        q, m, d, idx.data_ptr(), d2.data_ptr(),
-        torch.cuda.current_stream(queries.device).cuda_stream,
-    )
+    with on_device(queries.device):
+        err = build.library().tpu3d_nn_top1(
+            queries.data_ptr(), targets.data_ptr(), mask_u8.data_ptr(),
+            q, m, d, idx.data_ptr(), d2.data_ptr(),
+            torch.cuda.current_stream(queries.device).cuda_stream,
+        )
     build.check(err, "tpu3d_nn_top1")
     return idx, d2
 
@@ -154,12 +155,13 @@ def descriptor_top1(queries, qop, top, m):
         2 * q + 2 * splits * qp, dtype=torch.float32, device=dev,
     ).split([q, q, splits * qp, splits * qp])
     idx, part_i = idx.view(torch.int32), part_i.view(torch.int32)
-    err = build.library().tpu3d_nn_desc_top1(
-        qop.data_ptr(), top.data_ptr(), queries.data_ptr(), q, d,
-        qp, top.shape[0] // T_TILE, per, splits,
-        part_e.data_ptr(), part_i.data_ptr(), idx.data_ptr(), d2.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with on_device(dev):
+        err = build.library().tpu3d_nn_desc_top1(
+            qop.data_ptr(), top.data_ptr(), queries.data_ptr(), q, d,
+            qp, top.shape[0] // T_TILE, per, splits,
+            part_e.data_ptr(), part_i.data_ptr(), idx.data_ptr(), d2.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     build.check(err, "tpu3d_nn_desc_top1")
     return idx, d2
 

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from tpu3d_torch import build
-from tpu3d_torch.device import launches_kernel, sm_count
+from tpu3d_torch.device import launches_kernel, on_device, sm_count
 from tpu3d_torch.ops.slab2 import Slab2Index, block_windows, build_slab2
 
 _BIG = 1e30
@@ -200,12 +200,13 @@ def top1_walk(q4, packed, lo, ln, r2, block, sub=512):
     order = torch.empty((lo.shape[0],), dtype=torch.int32, device=q4.device)
     d2 = torch.empty((qp,), dtype=torch.float32, device=q4.device)
     idx = torch.empty((qp,), dtype=torch.int32, device=q4.device)
-    rc = build.library().tpu3d_nn_walk_top1(
-        q4.data_ptr(), packed.data_ptr(), lo.data_ptr(), ln.data_ptr(),
-        order.data_ptr(), qp, packed.shape[1], lo.shape[0], lo.shape[1],
-        block, tile, slices, per, float(r2), d2.data_ptr(), idx.data_ptr(),
-        torch.cuda.current_stream(q4.device).cuda_stream,
-    )
+    with on_device(q4.device):
+        rc = build.library().tpu3d_nn_walk_top1(
+            q4.data_ptr(), packed.data_ptr(), lo.data_ptr(), ln.data_ptr(),
+            order.data_ptr(), qp, packed.shape[1], lo.shape[0], lo.shape[1],
+            block, tile, slices, per, float(r2), d2.data_ptr(), idx.data_ptr(),
+            torch.cuda.current_stream(q4.device).cuda_stream,
+        )
     build.check(rc, "tpu3d_nn_walk_top1")
     build.count_launch(top1_walk)
     return d2, idx

@@ -46,7 +46,9 @@ class Draws(Protocol):
     the one-shot and the two-stage routes. ``draws.rows(n, count)`` is the
     two-stage route's stage-1 draw: i64[n] valid-row ranks in [0, count),
     with replacement (CPU). A plain function serves where only the
-    rotation sampler runs."""
+    rotation sampler runs. The sharded RANSAC
+    (``parallel/ransac_sharded.py``) asks shard s of round c for chunk
+    c·n_shards + s, as the JAX package keys it."""
 
     def __call__(self, chunk: int, epoch: int) -> tuple[int, int, int]: ...
 

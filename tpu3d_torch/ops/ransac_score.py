@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from tpu3d_torch import build
-from tpu3d_torch.device import launches_kernel
+from tpu3d_torch.device import launches_kernel, on_device
 
 # Hypotheses per (N, chunk) err² block in the plain version.
 _PLAIN_CHUNK = 512
@@ -92,11 +92,12 @@ def score_hypotheses(
     # counts and f32 sums, addressed by offset (fewer host-side views).
     out = torch.empty((2 + 2 * slices) * h, dtype=torch.float32, device=dev)
     base = out.data_ptr()
-    rc = build.library().tpu3d_ransac_score(
-        *(x.data_ptr() for x in ins), n, h, rows, slices, float(thr2),
-        BAND, base + 4 * (2 + slices) * h, base + 8 * h, base,
-        base + 4 * h, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with on_device(dev):
+        rc = build.library().tpu3d_ransac_score(
+            *(x.data_ptr() for x in ins), n, h, rows, slices, float(thr2),
+            BAND, base + 4 * (2 + slices) * h, base + 8 * h, base,
+            base + 4 * h, torch.cuda.current_stream(dev).cuda_stream,
+        )
     build.check(rc, "tpu3d_ransac_score")
     build.count_launch(score_hypotheses)
     return out[:h], out[h:2 * h]

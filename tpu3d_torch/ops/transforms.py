@@ -2,7 +2,7 @@
 
 Counterpart of ``tpu3d/ops/transforms.py`` (``make_transform``,
 ``transform_points``, ``invert_transform``, ``euler_xyz_to_matrix``,
-``matrix_to_rpy_zyx``, ``kabsch_quat``, ``_qcp_quat_planes``,
+``matrix_to_rpy_zyx``, ``kabsch``, ``kabsch_quat``, ``_qcp_quat_planes``,
 ``kabsch3_planes``, ``kabsch_from_cross_cov``). Plane functions take
 tuples of equally shaped tensors (one per coordinate or matrix entry) and
 do elementwise math only, in the same operation order as the JAX package
@@ -37,6 +37,36 @@ def kabsch_from_cross_cov(sw, sp, sq, H) -> tuple[np.ndarray, np.ndarray]:
         R = V @ U.T
     t = tgt_mean - R @ src_mean
     return R.astype(np.float32), t.astype(np.float32)
+
+
+def kabsch(
+    src: torch.Tensor,
+    tgt: torch.Tensor,
+    weights: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted Kabsch: (R, t) minimising Σ w_i ‖R src_i + t − tgt_i‖²,
+    batched over leading axes (src/tgt (..., N, 3), weights (..., N)). SVD
+    of H = Σ w (src − s̄)(tgt − t̄)ᵀ; the reflection fix flips the last
+    singular direction (the smallest: singular values come descending)
+    when det R < 0, as the reference does (registration.cpp:258-262)."""
+    if weights is None:
+        weights = torch.ones(src.shape[:-1], dtype=src.dtype,
+                             device=src.device)
+    w = weights[..., None]
+    wsum = torch.clamp_min(w.sum(-2, keepdim=True), 1e-12)
+    src_mean = (src * w).sum(-2, keepdim=True) / wsum
+    tgt_mean = (tgt * w).sum(-2, keepdim=True) / wsum
+    src_c = (src - src_mean) * w
+    tgt_c = tgt - tgt_mean
+    H = src_c.transpose(-1, -2) @ tgt_c
+    U, _, Vt = torch.linalg.svd(H)
+    V = Vt.transpose(-1, -2)
+    R = V @ U.transpose(-1, -2)
+    sign = torch.where(torch.linalg.det(R) < 0, -1.0, 1.0).to(V.dtype)
+    V = torch.cat([V[..., :2], V[..., 2:] * sign[..., None, None]], -1)
+    R = V @ U.transpose(-1, -2)
+    t = tgt_mean[..., 0, :] - (R @ src_mean[..., 0, :, None])[..., 0]
+    return R, t
 
 
 def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

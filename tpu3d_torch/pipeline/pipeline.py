@@ -10,11 +10,14 @@ fans out over a host thread pool (pipeline.cpp:321-339); instances that
 share a capacity bucket register as one group, member by member.
 
 ``use_gpu`` puts every tensor on the card (``cuda``) or, when false, on
-the CPU, where each kernel's plain version runs. The multi-device
-``parallel:`` block is not ported: a mode other than 'off' raises
-``NotImplementedError`` (ROADMAP.md queue 1, item 9). A low-fitness
-member of a sparse group escalates from its own result instead of
-re-running the sparse arm first.
+the CPU, where each kernel's plain version runs. A ``parallel:`` block
+that resolves to a mesh (``parallel_mesh`` over the devices of that type)
+routes the reference model's prepare, every instance's dense prepare and
+every registration through the distributed stack
+(``parallel/register_sharded.py``), with the sparse arm's escalation
+sharded too, and turns the capacity-group fan-out off, as in the JAX
+package. A low-fitness member of a sparse group escalates from its own
+result instead of re-running the sparse arm first.
 """
 
 from __future__ import annotations
@@ -41,6 +44,11 @@ from tpu3d_torch.ops.fused_features import fused_prepare_sparse
 from tpu3d_torch.ops.icp import icp_refine
 from tpu3d_torch.ops.ransac import ransac_registration, with_target_operand
 from tpu3d_torch.ops.transforms import invert_transform
+from tpu3d_torch.parallel.register_sharded import (
+    parallel_mesh,
+    prepare_features_sharded,
+    register_prepared_sharded,
+)
 from tpu3d_torch.pipeline.dedup import filter_duplicates
 from tpu3d_torch.registration import (
     downsample_bucketed,
@@ -55,12 +63,6 @@ from tpu3d_torch.viz.viewer import SceneViewer
 
 class Pipeline:
     def __init__(self, config: PipelineConfig, sleep_fn=time.sleep):
-        if config.parallel.mode != "off":
-            raise NotImplementedError(
-                f"parallel.mode={config.parallel.mode!r}: multi-device "
-                "registration is not ported yet (ROADMAP.md queue 1, item "
-                "9: multi-GPU); set parallel.mode to 'off'"
-            )
         self.config = config
         self.viewer: Optional[SceneViewer] = None
         self._sleep_fn = sleep_fn
@@ -78,9 +80,17 @@ class Pipeline:
         self._degraded = 0
         self._batched_groups = 0
         self.device = torch.device("cuda" if config.use_gpu else "cpu")
+        # Multi-device routing (the `parallel:` block): with a mesh, every
+        # registration runs the distributed stack. The count is a
+        # diagnostic hook.
+        self._mesh = parallel_mesh(config.parallel, self.device.type)
+        self._sharded_registrations = 0
         print(
             f"Pipeline created (threads={config.num_threads},"
-            f" accelerator={'on' if config.use_gpu else 'off'})"
+            f" accelerator={'on' if config.use_gpu else 'off'}"
+            + (f", mesh={self._mesh.devices.size}x'shard'"
+               if self._mesh is not None else "")
+            + ")"
         )
 
     # ---------------------------------------------------------------- stage 4
@@ -158,6 +168,9 @@ class Pipeline:
                 cfg.registration, self._neighbor_mode, down
             ):
                 return (down, None)
+            if self._mesh is not None and self._neighbor_mode == "fused":
+                c, f, _ = self._prepare_sharded(down)
+                return (c, f)
             return prepare_features(down, cfg.registration,
                                     self._neighbor_mode)
         except Exception as e:  # degrade like pipeline.cpp:146-149
@@ -179,6 +192,12 @@ class Pipeline:
                 ransac_src, ransac_feat, _ = fused_prepare_sparse(
                     source, self._fpfh_radius())
                 corr_mode = "exact"
+            if self._mesh is not None:
+                refined, coarse = self._register_sharded(
+                    source, source_features, ransac_src, ransac_feat,
+                    ref_cloud, ref_features, corr_mode, instance_id)
+                return self._finish_instance(refined, coarse, instance_id,
+                                             t0)
             coarse = self._ransac(ransac_src, ref_cloud, ransac_feat,
                                   ref_features, corr_mode)
             print(
@@ -219,6 +238,49 @@ class Pipeline:
             print(f"Instance {instance_id} error: {e}")
             self._degraded += 1
             return None
+
+    def _prepare_sharded(self, down):
+        """The halo-exchange prepare over the mesh (the lead device's
+        fused prepare when its exactness check fails)."""
+        return prepare_features_sharded(
+            down, self.config.registration, self._mesh,
+            halo=self.config.parallel.halo or None)
+
+    def _register_sharded(self, source, source_features, ransac_src,
+                          ransac_feat, ref_cloud, ref_features, corr_mode,
+                          instance_id):
+        """The `parallel:` route: sharded descriptor NN, RANSAC and ICP.
+        RANSAC reads the (possibly sparse subset) view, ICP the full
+        source; a sparse result below the escalation threshold re-runs
+        with the full-prepare descriptors (sharded when the halo check
+        allows) and the better fitness wins."""
+        cfg = self.config.registration
+        refined, coarse = register_prepared_sharded(
+            ransac_src, ref_cloud, ransac_feat, ref_features, cfg,
+            self._mesh, corr_mode=corr_mode, icp_source=source,
+            draws=self._draws)
+        self._sharded_registrations += 1
+        fitness = float(refined.fitness)  # sync: faults surface here
+        print(
+            f"RANSAC result: fitness={float(coarse.fitness):.4f},"
+            f" RMSE={float(coarse.rmse):.6f} [sharded x"
+            f"{self._mesh.devices.size}]"
+        )
+        if (source_features is None
+                and fitness < self._sparse_escalate_threshold()):
+            print(
+                f"Instance {instance_id}: sparse sharded fitness"
+                f" {fitness:.4f} below threshold — escalating through the"
+                " full-prepare arm"
+            )
+            src_full, src_feat, _ = self._prepare_sharded(source)
+            refined2, coarse2 = register_prepared_sharded(
+                src_full, ref_cloud, src_feat, ref_features, cfg,
+                self._mesh, corr_mode=cfg.corr_mode, icp_source=source,
+                draws=self._draws)
+            if float(refined2.fitness) > fitness:
+                refined, coarse = refined2, coarse2
+        return refined, coarse
 
     def _fpfh_radius(self) -> float:
         return float(np.float32(self.config.registration.voxel_size * 5.0))
@@ -318,7 +380,9 @@ class Pipeline:
 
         self._batched_groups = 0  # test/diagnostic hook
         for cap, ids in sorted(groups.items()):
-            if len(ids) >= 2:
+            # With a mesh, each instance already spans every device: no
+            # group fan-out, instances run one by one, each distributed.
+            if len(ids) >= 2 and self._mesh is None:
                 # Every member degrades on its own inside the group, so the
                 # group needs no per-instance fallback.
                 poses_b = self._register_batch_group(
@@ -466,11 +530,15 @@ class Pipeline:
             capacity=cfg.registration.max_points or None,
         )
         self._neighbor_mode = resolve_neighbor_mode(ref_down.capacity)
-        ref_cloud, ref_features = prepare_features(
-            ref_down, cfg.registration, self._neighbor_mode
-        )
-        # K5's target operand, once per reference model.
-        ref_features = with_target_operand(ref_features)
+        if self._mesh is not None and self._neighbor_mode == "fused":
+            ref_cloud, ref_features, _ = self._prepare_sharded(ref_down)
+        else:
+            ref_cloud, ref_features = prepare_features(
+                ref_down, cfg.registration, self._neighbor_mode
+            )
+        if self._mesh is None:
+            # K5's target operand, once per reference model.
+            ref_features = with_target_operand(ref_features)
 
         if cfg.visualization != "none":
             self.viewer = SceneViewer()

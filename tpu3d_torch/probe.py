@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from tpu3d_torch import build
-from tpu3d_torch.device import launches_kernel
+from tpu3d_torch.device import launches_kernel, on_device
 
 UNARY = ("atan2", "atan", "acos", "cos")
 # The CUDA math library's documented maximum ulp errors (CUDA C++
@@ -67,9 +67,10 @@ def unary(x: torch.Tensor, name: str) -> torch.Tensor:
         return unary_plain(x, name)
     x = x.contiguous()
     out = torch.empty_like(x)
-    rc = build.library().tpu3d_probe_unary(
-        x.data_ptr(), x.numel(), UNARY.index(name), out.data_ptr(),
-        _stream(x))
+    with on_device(x.device):
+        rc = build.library().tpu3d_probe_unary(
+            x.data_ptr(), x.numel(), UNARY.index(name), out.data_ptr(),
+            _stream(x))
     build.check(rc, "tpu3d_probe_unary")
     build.count_launch(unary)
     return out
@@ -88,15 +89,30 @@ def row_argmin(x: torch.Tensor) -> torch.Tensor:
         return row_argmin_plain(x)
     x = x.contiguous()
     out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
-    rc = build.library().tpu3d_probe_argmin(
-        x.data_ptr(), x.shape[0], x.shape[1], out.data_ptr(), _stream(x))
+    with on_device(x.device):
+        rc = build.library().tpu3d_probe_argmin(
+            x.data_ptr(), x.shape[0], x.shape[1], out.data_ptr(), _stream(x))
     build.check(rc, "tpu3d_probe_argmin")
     build.count_launch(row_argmin)
     return out
 
 
 def row_cumsum_plain(x: torch.Tensor) -> torch.Tensor:
-    return torch.cumsum(x, dim=1)
+    """The kernel's order of additions: each 32-wide piece of a row scanned
+    by five shifted adds (element i adds element i − d, d = 1 … 16), then
+    the carry, the previous piece's last sum, added to every element."""
+    rows, cols = x.shape
+    out = torch.empty_like(x)
+    carry = torch.zeros((rows, 1), dtype=x.dtype, device=x.device)
+    for c0 in range(0, cols, 32):
+        w = min(32, cols - c0)
+        v = torch.nn.functional.pad(x[:, c0:c0 + w], (0, 32 - w))
+        for d in (1, 2, 4, 8, 16):
+            v = torch.cat([v[:, :d], v[:, d:] + v[:, :-d]], dim=1)
+        v = v + carry
+        out[:, c0:c0 + w] = v[:, :w]
+        carry = v[:, 31:32]
+    return out
 
 
 def row_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -108,8 +124,9 @@ def row_cumsum(x: torch.Tensor) -> torch.Tensor:
         return row_cumsum_plain(x)
     x = x.contiguous()
     out = torch.empty_like(x)
-    rc = build.library().tpu3d_probe_cumsum(
-        x.data_ptr(), x.shape[0], x.shape[1], out.data_ptr(), _stream(x))
+    with on_device(x.device):
+        rc = build.library().tpu3d_probe_cumsum(
+            x.data_ptr(), x.shape[0], x.shape[1], out.data_ptr(), _stream(x))
     build.check(rc, "tpu3d_probe_cumsum")
     build.count_launch(row_cumsum)
     return out
@@ -131,9 +148,10 @@ def dot_axis0(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     k, p = a.shape
     q = b.shape[0]
     out = torch.empty((p, q), dtype=torch.float32, device=a.device)
-    rc = build.library().tpu3d_probe_dot_axis0(
-        a.data_ptr(), b.data_ptr(), k, p, q, b.shape[1], out.data_ptr(),
-        _stream(a))
+    with on_device(a.device):
+        rc = build.library().tpu3d_probe_dot_axis0(
+            a.data_ptr(), b.data_ptr(), k, p, q, b.shape[1], out.data_ptr(),
+            _stream(a))
     build.check(rc, "tpu3d_probe_dot_axis0")
     build.count_launch(dot_axis0)
     return out
@@ -152,8 +170,9 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
         return transpose_plain(x)
     x = x.contiguous()
     out = torch.empty_like(x)
-    rc = build.library().tpu3d_probe_transpose(
-        x.data_ptr(), x.shape[0], out.data_ptr(), _stream(x))
+    with on_device(x.device):
+        rc = build.library().tpu3d_probe_transpose(
+            x.data_ptr(), x.shape[0], out.data_ptr(), _stream(x))
     build.check(rc, "tpu3d_probe_transpose")
     build.count_launch(transpose)
     return out
@@ -207,11 +226,6 @@ def cases(device):
         err = int((k != p).sum())
         return err, 0, "elements differing", err == 0
 
-    def cumsum_tol(k, p):
-        # Each of the two sums lies within n·u·Σ|x| of the exact prefix.
-        n = torch.arange(1, x.shape[1] + 1, device=x.device)
-        return _within(k, p, 2 * n * _U * torch.cumsum(x.abs().double(), 1))
-
     def dot_tol(k, p):
         kk = a.shape[0]
         return _within(k, p, 2 * kk * _U * (a.abs().double().T
@@ -223,7 +237,7 @@ def cases(device):
     out += [
         ("argmin", lambda: row_argmin(x), lambda: row_argmin_plain(x), exact),
         ("cumsum", lambda: row_cumsum(x), lambda: row_cumsum_plain(x),
-         cumsum_tol),
+         exact),
         ("dot_axis0", lambda: dot_axis0(a, y), lambda: dot_axis0_plain(a, y),
          dot_tol),
         ("transpose", lambda: transpose(y), lambda: transpose_plain(y),

@@ -16,8 +16,9 @@ from the downsampled capacities:
 RANSAC uses K5 correspondences and K6 scoring, ICP K7 (K5 below 4,096
 target rows). ``register_pair_multiscale`` runs RANSAC once at the
 coarsest voxel and ICP level by level on normals-only targets
-(``prepare_icp_target``). ``mesh`` is not ported and raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+(``prepare_icp_target``). ``mesh`` (a ``tpu3d_torch.parallel`` mesh of at
+least 2 shards) routes every stage through the distributed stack
+(``parallel/register_sharded.py``).
 """
 
 from __future__ import annotations
@@ -296,14 +297,17 @@ def register_pair(
 ) -> tuple[RegistrationResult, RegistrationResult]:
     """Full registration of two raw clouds → (refined, coarse), each a
     4×4 pose with fitness and rmse. The clouds' device decides where it
-    runs: CUDA tensors launch the port's kernels."""
+    runs: CUDA tensors launch the port's kernels. ``mesh`` with at least
+    2 devices routes through ``register_pair_sharded``."""
     if config is None:
         config = RegistrationConfig()
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device registration (mesh) is not ported yet "
-            "(ROADMAP.md queue 1, item 9: multi-GPU)"
+    if mesh is not None and mesh.devices.size >= 2:
+        from tpu3d_torch.parallel.register_sharded import (
+            register_pair_sharded,
         )
+
+        return register_pair_sharded(source, target, config, mesh,
+                                     draws=draws)
     src_down = downsample_bucketed(source, config)
     tgt_down = downsample_bucketed(target, config)
     # One descriptor variant for both clouds of the pair.
