@@ -149,6 +149,18 @@ Phases, each fatal on failure:
         devices: 4}``, the card seen 4 times: every instance posed through
         the gate, one sharded registration each;
      e. ``tpu3d_torch.parallel.dryrun.dryrun_multichip(4)`` (2 x 2 mesh).
+  9. the examples and the timing helpers:
+     a. ``examples/torch_register_pair.py`` (20,000 points, voxel 0.004,
+        20,000 hypotheses) and ``examples/torch_register_pair_multichip.py
+        --virtual 4`` (cuda:0 seen 4 times) through their ``main``, each
+        through the quality gate with its launches counted;
+     b. ``register_pair`` on phase 3's pair timed by the port's
+        ``device_timeit`` and ``StageTimer`` beside ``host_ms``, and the
+        card's ``roundtrip_ms``;
+     c. phase 3's point-to-point (K7's match-only epilogue) and 'brute'
+        (K5 at D = 3) ICP from its RANSAC pose on the card and on CPU
+        copies (the plain versions): both through the gate, the largest
+        pose difference printed and held within 1e-3.
   Kernel and plain times are CUDA events, 2 warm runs, median of 5
   (slab_top1 and K8's plain version: 1 warm run, median of 3); beside
   them ``device_ms``, the device time of one call (10 calls queued behind
@@ -2796,6 +2808,118 @@ def sharded_phase(torch, np, dev, args, entries, counters):
     return [pair_route, nn_route, frame_route, dry]
 
 
+def examples_phase(torch, np, dev, counters):
+    """Phase 9: the two examples through their ``main`` (9a), one pair
+    timed by the port's timing helpers (9b), and phase 3's point-to-point
+    and brute ICP on the card against the plain versions (9c)."""
+    import tpu3d_torch
+    from tpu3d_torch.models.fixtures import make_pair
+    from tpu3d_torch.ops import icp, ransac
+    from tpu3d_torch.registration import downsample_bucketed, prepare_features
+    from tpu3d_torch.utils import StageTimer, device_timeit, roundtrip_ms
+
+    t_phase = time.perf_counter()
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    import torch_register_pair
+    import torch_register_pair_multichip
+
+    routes = []
+    for label, module, argv, expect in (
+            ("example", torch_register_pair, [],
+             ("K2", "K3", "K4", "K5", "K6", "K7")),
+            ("example multichip, 4 virtual shards",
+             torch_register_pair_multichip, ["--virtual", "4"],
+             ("K2", "K3", "K4", "K5", "K6"))):
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            r_err, t_err, fitness = module.main(argv)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts(counters)
+        log(printed.getvalue().rstrip())
+        log(f"9a {label}: {ms:.1f} ms (first run), launches {launches}")
+        check(r_err < 0.02 and t_err < 0.005,
+              f"{label}: quality gate failed: rotation {r_err}, "
+              f"translation {t_err}")
+        check(all(launches[k] > 0 for k in expect),
+              f"{label}: a kernel did not launch: {launches}")
+        routes.append({"route": label, "main_path": module.__file__[
+            len(REPO) + 1:], "ms_first": ms, "rot_err": r_err,
+            "trans_err": t_err, "fitness": fitness, "launches": launches})
+
+    src_np, tgt_np, R_true, t_true = make_pair(N_POINTS, voxel=VOXEL)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=VOXEL)
+    src = tpu3d_torch.PointCloud.from_numpy(src_np, device=dev)
+    tgt = tpu3d_torch.PointCloud.from_numpy(tgt_np, device=dev)
+
+    def pair():
+        return tpu3d_torch.register_pair(src, tgt, cfg)
+
+    timed = device_timeit(pair, iters=5, warmup=1)
+    stages = StageTimer()
+    for i in range(3):
+        stages.time(f"register_pair_{i}", pair)
+    host = host_ms(torch, pair, warm=1, reps=3)[0]
+    rt = roundtrip_ms(n=8, device=dev)
+    timing = {"route": "timing helpers, bucket 8,192 pair",
+              "main_path": "tpu3d_torch.register_pair",
+              "fixture": f"make_pair({N_POINTS}, voxel={VOXEL})",
+              "device_timeit": timed, "stage_timer_ms": stages.stages,
+              "host_ms": host, "roundtrip_ms": rt}
+    log(f"9b: {timing}")
+    check(0.0 < timed["best_ms"] <= timed["mean_ms"] and rt > 0.0,
+          f"timing helpers: {timed}, roundtrip {rt}")
+    routes.append(timing)
+
+    sd = downsample_bucketed(src, cfg)
+    td = downsample_bucketed(tgt, cfg)
+    sd, sf = prepare_features(sd, cfg)
+    td, tf = prepare_features(td, cfg)
+    co = ransac.ransac_registration(
+        sd, td, sf, tf, VOXEL, max_iterations=cfg.ransac_max_iterations,
+        confidence=cfg.ransac_confidence, seed=cfg.ransac_seed)
+    T0 = co.transformation
+    thr = VOXEL * cfg.icp_distance_factor
+
+    def on_cpu(c):
+        return c._replace(**{k: getattr(c, k).cpu() for k in (
+            "points", "mask", "normals") if getattr(c, k) is not None})
+
+    icp_route = {"route": "ICP on the card against the plain versions, "
+                          "bucket 8,192, from the RANSAC pose"}
+    for label, kw in (("point_to_point", dict(point_to_plane=False)),
+                      ("brute", dict(nn_mode="brute"))):
+        reset_counts(counters)
+        card = icp.icp_refine(sd, td, T0, thr,
+                              max_iterations=cfg.icp_max_iterations, **kw)
+        torch.cuda.synchronize()
+        launches = launch_counts(counters)
+        plain = icp.icp_refine(on_cpu(sd), on_cpu(td), T0.cpu(), thr,
+                               max_iterations=cfg.icp_max_iterations, **kw)
+        Tk = card.transformation.cpu().numpy()
+        Tp = plain.transformation.numpy()
+        diff = float(np.abs(Tk - Tp).max())
+        log(f"9c {label} ICP: kernel pose {Tk.tolist()}, plain pose "
+            f"{Tp.tolist()}, max |dT| {diff:.3e}, fitness "
+            f"{float(card.fitness):.6f} / {float(plain.fitness):.6f}, "
+            f"launches {launches}")
+        gate(np, card, R_true, t_true)
+        gate(np, plain, R_true, t_true)
+        kernel = "K7m" if label == "point_to_point" else "K5"
+        check(launches[kernel] > 0, f"9c {label}: {kernel} did not launch")
+        check(diff < 1e-3, f"9c {label}: kernel and plain poses {diff} apart")
+        icp_route[label] = {
+            "kernel_pose": Tk.tolist(), "plain_pose": Tp.tolist(),
+            "max_abs_dT": diff, "fitness": float(card.fitness),
+            "fitness_plain": float(plain.fitness), "launches": launches}
+    routes.append(icp_route)
+    log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return routes
+
+
 def run(args):
     import numpy as np
     import torch
@@ -2893,6 +3017,16 @@ def run(args):
                                    sweeps + [k5, k6, k8], sharded_counters)
     k7m["launches_pipeline_knobs"] = bin_route["knobs"]["launches"]["K7"]
     kernels = kernels + [k7m]
+    card_states["phase 9"] = card_state()
+    example_counters = {k: f for k, f in counters.items() if k != "K9"}
+    example_counters.update({"K7m": icp_stats.icp_matches,
+                             "K8": nn_walk.top1_walk})
+    example_routes = examples_phase(torch, np, dev, example_counters)
+    for entry, name in zip(sweeps + [k5, k6, k7, k7m, k8],
+                           ("K2", "K3", "K4", "K5", "K6", "K7", "K7m", "K8")):
+        entry["launches_example"] = example_routes[0]["launches"][name]
+        entry["launches_example_multichip"] = (
+            example_routes[1]["launches"][name])
     for e in kernels + [k8] + probe_entries:
         # The tensor-core bound and the split count exist for K5's
         # descriptor route and K6 only.
@@ -2911,7 +3045,8 @@ def run(args):
     log(f"card state by phase: {card_states}")
     scene_routes[-1]["card_states"] = card_states
     for route in ([ref_route, scale_route, cli, bin_route, host]
-                  + scene_routes + entry_routes + sharded_routes):
+                  + scene_routes + entry_routes + sharded_routes
+                  + example_routes):
         print(json.dumps(route), flush=True)
     return {
         "ok": True,

@@ -1,7 +1,18 @@
 """ICP port parity: the K7 plain version against the JAX slab stats (XLA
 and Pallas interpret) and its match stage against the JAX slab top-1, and
 ``icp_refine`` against the JAX one from the same start, on the slab and
-the brute backends, point-to-plane and point-to-point."""
+the brute backends, point-to-plane and point-to-point.
+
+The JAX package's 'brute' backend has two CPU forms of one top-1: the XLA
+fallback ``nearest_neighbor`` takes off the TPU, and the Pallas kernel in
+interpret mode, which K5 ports. The brute cases run against both.
+
+Point-to-plane on the slab and grid backends holds the pose at 1e-6, the
+North star's rule. 'brute' and point-to-point on the slab and brute
+backends hold 1e-5: ROADMAP.md §3 records the measured gaps and why."""
+
+import contextlib
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +26,7 @@ from tpu3d.ops.icp import build_icp_target as jax_build_icp_target
 from tpu3d.ops.icp import fused_slab_stats_fn as jax_fused_stats
 from tpu3d.ops.icp import icp_refine as jax_icp_refine
 from tpu3d.ops.icp_pallas import icp_p2plane_stats_pallas
+from tpu3d.ops.nn_pallas import nearest_neighbor_pallas
 from tpu3d.ops.slab import _block_slices as jax_block_slices
 from tpu3d.ops.transforms import transform_points as jax_transform_points
 from tpu3d.registration import downsample_bucketed, prepare_features
@@ -41,6 +53,27 @@ def _make(rng, n=500, cap=640):
         normals=jnp.asarray(np.pad(nrm, ((0, pad), (0, 0)))),
         mask=jnp.asarray(np.arange(cap) < n),
     )
+
+
+@contextlib.contextmanager
+def _jax_top1(form):
+    """JAX's ICP top-1 as ``form``: 'xla' (the off-TPU fallback it takes by
+    itself) or 'interpret' (the Pallas kernel in interpret mode); the jit
+    caches are cleared on both sides so that no trace of one form serves
+    the other."""
+    if form == "xla":
+        yield
+        return
+    import tpu3d.ops.icp as jax_icp
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_icp, "nearest_neighbor",
+                   functools.partial(nearest_neighbor_pallas, interpret=True))
+        jax.clear_caches()
+        try:
+            yield
+        finally:
+            jax.clear_caches()
 
 
 def _to_torch(c):
@@ -154,8 +187,14 @@ def _prepared(n):
     return sd, td, R, t
 
 
-@pytest.mark.parametrize("n,backend", [(4096, "slab"), (2048, "brute")])
-def test_icp_refine_matches_jax(n, backend):
+@pytest.mark.parametrize("n,backend,jax_top1,atol", [
+    (4096, "slab", "xla", 1e-6),
+    (2048, "brute", "xla", 1e-5),
+    (2048, "brute", "interpret", 1e-5),
+])
+def test_icp_refine_matches_jax(n, backend, jax_top1, atol):
+    """The pose within ``atol`` of JAX's from the same start ('brute':
+    4.3e-6 from the XLA fallback, 2.4e-6 from the Pallas kernel)."""
     sd, td, R, t = _prepared(n)
     assert (td.capacity >= 4096) == (backend == "slab")
     T0 = np.eye(4, dtype=np.float32)
@@ -164,12 +203,13 @@ def test_icp_refine_matches_jax(n, backend):
         [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]],
         np.float32)
     T0[:3, 3] = t + np.float32([0.003, -0.002, 0.001])
-    ref = jax_icp_refine(sd, td, jnp.asarray(T0), VOXEL * 0.4,
-                         max_iterations=200)
+    with _jax_top1(jax_top1):
+        ref = jax_icp_refine(sd, td, jnp.asarray(T0), VOXEL * 0.4,
+                             max_iterations=200)
     got = icp.icp_refine(_to_torch(sd), _to_torch(td), _t(T0), VOXEL * 0.4,
                          max_iterations=200)
     np.testing.assert_allclose(got.transformation.numpy(),
-                               np.asarray(ref.transformation), atol=1e-5)
+                               np.asarray(ref.transformation), atol=atol)
     np.testing.assert_allclose(float(got.fitness), float(ref.fitness),
                                atol=1e-3)
     # The brute backend's d² comes from the ‖t‖² − 2t·s + ‖s‖² expansion,
@@ -203,7 +243,7 @@ def test_icp_source_subset_matches_jax(prepared_4096, final_metrics,
     ts, tt = _to_torch(sd), _to_torch(td)
     got = icp.icp_refine(ts, tt, _t(T0), VOXEL * 0.4, **kw)
     np.testing.assert_allclose(got.transformation.numpy(),
-                               np.asarray(ref.transformation), atol=1e-5)
+                               np.asarray(ref.transformation), atol=1e-6)
     np.testing.assert_allclose(float(got.fitness), float(ref.fitness),
                                atol=1e-3)
     np.testing.assert_allclose(float(got.rmse), float(ref.rmse), rtol=1e-3,
@@ -224,21 +264,24 @@ def _start(R, t, a=0.01, dt=(0.003, -0.002, 0.001)):
     return T0
 
 
-@pytest.mark.parametrize("n,backend,normals", [
-    (4096, "slab", True), (2048, "brute", True), (4096, "slab", False),
-    (2048, "brute", False),
+@pytest.mark.parametrize("n,backend,normals,jax_top1", [
+    (4096, "slab", True, "xla"), (2048, "brute", True, "xla"),
+    (4096, "slab", False, "xla"), (2048, "brute", False, "xla"),
+    (2048, "brute", True, "interpret"), (2048, "brute", False, "interpret"),
 ])
-def test_point_to_point_matches_jax(n, backend, normals):
+def test_point_to_point_matches_jax(n, backend, normals, jax_top1):
     """point_to_plane=False on both backends, and a target without normals
-    (point-to-point whatever the flag): JAX's pose within 1e-5 (float32
-    SVDs of two libraries) and its inlier count."""
+    (point-to-point whatever the flag): JAX's pose within 1e-5 (2.1e-6
+    measured on the slab, 7.0e-6 and 7.1e-6 on 'brute' against JAX's two
+    forms) and its inlier count."""
     sd, td, R, t = _prepared(n)
     assert (td.capacity >= 4096) == (backend == "slab")
     if not normals:
         td = td._replace(normals=None)
     T0 = _start(R, t)
-    ref = jax_icp_refine(sd, td, jnp.asarray(T0), VOXEL * 0.4,
-                         max_iterations=60, point_to_plane=not normals)
+    with _jax_top1(jax_top1):
+        ref = jax_icp_refine(sd, td, jnp.asarray(T0), VOXEL * 0.4,
+                             max_iterations=60, point_to_plane=not normals)
     got = icp.icp_refine(_to_torch(sd), _to_torch(td), _t(T0), VOXEL * 0.4,
                          max_iterations=60, point_to_plane=not normals)
     np.testing.assert_allclose(got.transformation.numpy(),
@@ -266,7 +309,7 @@ def test_point_to_point_subset_matches_jax(prepared_4096, final_metrics,
     got = icp.icp_refine(_to_torch(sd), _to_torch(td), _t(T0), VOXEL * 0.4,
                          **kw)
     np.testing.assert_allclose(got.transformation.numpy(),
-                               np.asarray(ref.transformation), atol=1e-5)
+                               np.asarray(ref.transformation), atol=1e-6)
     np.testing.assert_allclose(float(got.fitness), float(ref.fitness),
                                atol=1e-3)
     assert float(got.fitness) > 0.9
@@ -317,7 +360,8 @@ def test_k7_match_stage_matches_jax_slab_top1():
 
 def test_kabsch_from_cross_cov_matches_jax(rng):
     """The host Kabsch step against the JAX package's, on weighted
-    matches of a known pose and on a reflection-forcing set."""
+    matches of a known pose and on a reflection-forcing set: bit for bit,
+    both factoring H with LAPACK's sgesdd."""
     from tpu3d.ops.transforms import kabsch_from_cross_cov as jax_kabsch
 
     from tpu3d_torch.ops.transforms import kabsch_from_cross_cov
@@ -337,35 +381,40 @@ def test_kabsch_from_cross_cov_matches_jax(rng):
         R, t = kabsch_from_cross_cov(sw, sp, sq, H)
         jR, jt = jax_kabsch(jnp.float32(sw), jnp.asarray(sp), jnp.asarray(sq),
                             jnp.asarray(H))
-        np.testing.assert_allclose(R, np.asarray(jR), atol=1e-5)
-        np.testing.assert_allclose(t, np.asarray(jt), atol=1e-5)
+        np.testing.assert_array_equal(R, np.asarray(jR))
+        np.testing.assert_array_equal(t, np.asarray(jt))
         assert abs(np.linalg.det(R) - 1.0) < 1e-5
     R, t = kabsch_from_cross_cov(3.0, np.zeros(3), np.zeros(3),
                                  np.full((3, 3), np.nan))
     assert not np.isfinite(R).any() and not np.isfinite(t).any()
 
 
-@pytest.mark.parametrize("nn_mode,point_to_plane,cell_capacity", [
-    ("grid", True, 16), ("grid", False, 16), ("grid", True, 4),
-    ("brute", True, 16), ("slab", False, 16),
+@pytest.mark.parametrize(
+    "nn_mode,point_to_plane,cell_capacity,jax_top1,atol", [
+    ("grid", True, 16, "xla", 1e-6), ("grid", False, 16, "xla", 1e-6),
+    ("grid", True, 4, "xla", 1e-6), ("brute", True, 16, "xla", 1e-5),
+    ("brute", True, 16, "interpret", 1e-5), ("slab", False, 16, "xla", 1e-5),
 ])
 def test_icp_nn_mode_matches_jax(prepared_4096, nn_mode, point_to_plane,
-                                 cell_capacity):
+                                 cell_capacity, jax_top1, atol):
     """An explicit ``nn_mode`` on a 4,096-row target ('auto' would take
     the slab backend): the grid backend (cell size = the threshold, with
     the default and an overflowing ``cell_capacity``), brute and slab from
     the same start as JAX. 'grid' and 'brute' iterate every source row.
-    Tolerances as test_icp_refine_matches_jax: the pose within 1e-5, the
-    fitness within 1e-3."""
+    The pose within ``atol``, the fitness within 1e-3. 'brute' holds 1e-5
+    against either JAX form (6.0e-6 from the XLA fallback, 4.7e-6 from the
+    Pallas kernel), the slab point-to-point case as
+    test_point_to_point_matches_jax."""
     sd, td, R, t = prepared_4096
     T0 = _start(R, t)
     kw = dict(max_iterations=60, point_to_plane=point_to_plane,
               nn_mode=nn_mode, cell_capacity=cell_capacity)
-    ref = jax_icp_refine(sd, td, jnp.asarray(T0), VOXEL * 0.4, **kw)
+    with _jax_top1(jax_top1):
+        ref = jax_icp_refine(sd, td, jnp.asarray(T0), VOXEL * 0.4, **kw)
     got = icp.icp_refine(_to_torch(sd), _to_torch(td), _t(T0), VOXEL * 0.4,
                          **kw)
     np.testing.assert_allclose(got.transformation.numpy(),
-                               np.asarray(ref.transformation), atol=1e-5)
+                               np.asarray(ref.transformation), atol=atol)
     np.testing.assert_allclose(float(got.fitness), float(ref.fitness),
                                atol=1e-3)
     np.testing.assert_allclose(float(got.rmse), float(ref.rmse), rtol=1e-3,

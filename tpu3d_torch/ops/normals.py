@@ -1,9 +1,9 @@
 """Normal estimation: k-NN covariance + closed-form smallest eigenvector.
 
 Counterpart of ``tpu3d/ops/normals.py`` (``smallest_eigvec_3x3``,
-``estimate_normals``): k=30 neighbours (self included), covariance of the
-neighbourhood, smallest-eigenvalue eigenvector by Cardano + spectral
-projector, flipped toward the origin. Without precomputed neighbours it
+``smallest_eigvec_3x3_planes``, ``estimate_normals``): k=30 neighbours
+(self included), covariance of the neighbourhood, smallest-eigenvalue
+eigenvector by Cardano + spectral projector, flipped toward the origin. Without precomputed neighbours it
 runs its own exact self-kNN, as the JAX one does.
 """
 
@@ -71,6 +71,70 @@ def div_rn(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / c
 
 
+def _scaled(a00, a01, a02, a11, a12, a22):
+    """The six components divided by their largest magnitude (≥ 1e-30)."""
+    scale = a00.abs()
+    for c in (a01, a02, a11, a12, a22):
+        scale = torch.maximum(scale, c.abs())
+    scale = torch.clamp_min(scale, 1e-30)
+    return tuple(c / scale for c in (a00, a01, a02, a11, a12, a22))
+
+
+def _projector_column(a00, a01, a02, a11, a12, a22, s, t, sqrt):
+    """The unit column of largest norm (the first on ties) of the spectral
+    projector A² − s·A + t·I, s = λ₂ + λ₃ and t = λ₂λ₃; e_z where the
+    projector vanishes."""
+    P00 = a00 * a00 + a01 * a01 + a02 * a02 - s * a00 + t
+    P01 = a00 * a01 + a01 * a11 + a02 * a12 - s * a01
+    P02 = a00 * a02 + a01 * a12 + a02 * a22 - s * a02
+    P11 = a01 * a01 + a11 * a11 + a12 * a12 - s * a11 + t
+    P12 = a01 * a02 + a11 * a12 + a12 * a22 - s * a12
+    P22 = a02 * a02 + a12 * a12 + a22 * a22 - s * a22 + t
+
+    n0 = P00 * P00 + P01 * P01 + P02 * P02
+    n1 = P01 * P01 + P11 * P11 + P12 * P12
+    n2 = P02 * P02 + P12 * P12 + P22 * P22
+    m0 = (n0 >= n1) & (n0 >= n2)
+    m1 = n1 >= n2
+    vx = torch.where(m0, P00, torch.where(m1, P01, P02))
+    vy = torch.where(m0, P01, torch.where(m1, P11, P12))
+    vz = torch.where(m0, P02, torch.where(m1, P12, P22))
+    vn = sqrt(vx * vx + vy * vy + vz * vz)
+    ok = vn > 1e-20
+    inv = 1.0 / torch.clamp_min(vn, 1e-30)
+    return (torch.where(ok, vx * inv, 0.0), torch.where(ok, vy * inv, 0.0),
+            torch.where(ok, vz * inv, 1.0))
+
+
+def smallest_eigvec_3x3_planes(a00, a01, a02, a11, a12, a22):
+    """Smallest eigenvector of symmetric 3×3 matrices given as six equally
+    shaped component tensors; returns (vx, vy, vz). Cardano's
+    trigonometric roots (arccos, cos), then the spectral projector
+    (A − λ₂)(A − λ₃), op for op the JAX package's
+    ``smallest_eigvec_3x3_planes``. The kernels' epilogue takes the
+    trig-free Newton form below instead."""
+    a00, a01, a02, a11, a12, a22 = _scaled(a00, a01, a02, a11, a12, a22)
+    q = (a00 + a11 + a22) / 3.0
+    p1 = a01 * a01 + a02 * a02 + a12 * a12
+    p2 = (a00 - q) ** 2 + (a11 - q) ** 2 + (a22 - q) ** 2 + 2.0 * p1
+    p = torch.sqrt(torch.clamp_min(p2 / 6.0, 1e-30))
+    inv_p = 1.0 / p
+    b00, b11, b22 = (a00 - q) * inv_p, (a11 - q) * inv_p, (a22 - q) * inv_p
+    b01, b02, b12 = a01 * inv_p, a02 * inv_p, a12 * inv_p
+    detB = (
+        b00 * (b11 * b22 - b12 * b12)
+        - b01 * (b01 * b22 - b12 * b02)
+        + b02 * (b01 * b12 - b11 * b02)
+    )
+    r = torch.clamp(detB / 2.0, -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    lam3 = q + 2.0 * p * torch.cos(phi)  # largest
+    lam1 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)  # smallest
+    lam2 = 3.0 * q - lam1 - lam3
+    return _projector_column(a00, a01, a02, a11, a12, a22, lam2 + lam3,
+                             lam2 * lam3, torch.sqrt)
+
+
 def smallest_eigvec_3x3_planes_newton(a00, a01, a02, a11, a12, a22,
                                       iters: int = 12):
     """Trig-free smallest eigenvector of symmetric 3×3 matrices given as six
@@ -82,13 +146,7 @@ def smallest_eigvec_3x3_planes_newton(a00, a01, a02, a11, a12, a22,
     and its column of largest norm (e_z when it vanishes). Sweep A's CUDA
     epilogue (``csrc/features.cu``) repeats these operations in this
     order, one rounding each (``sqrt_rn``, ``div_rn``)."""
-    scale = a00.abs()
-    for c in (a01, a02, a11, a12, a22):
-        scale = torch.maximum(scale, c.abs())
-    scale = torch.clamp_min(scale, 1e-30)
-    a00, a01, a02 = a00 / scale, a01 / scale, a02 / scale
-    a11, a12, a22 = a11 / scale, a12 / scale, a22 / scale
-
+    a00, a01, a02, a11, a12, a22 = _scaled(a00, a01, a02, a11, a12, a22)
     q = div_rn(a00 + a11 + a22, 3.0)
     p1 = a01 * a01 + a02 * a02 + a12 * a12
     d00, d11, d22 = a00 - q, a11 - q, a22 - q
@@ -117,27 +175,7 @@ def smallest_eigvec_3x3_planes_newton(a00, a01, a02, a11, a12, a22,
     )
     e2 = div_rn(9.0 * q * q - tra2, 2.0)
     t = e2 - lam1 * s
-
-    P00 = a00 * a00 + a01 * a01 + a02 * a02 - s * a00 + t
-    P01 = a00 * a01 + a01 * a11 + a02 * a12 - s * a01
-    P02 = a00 * a02 + a01 * a12 + a02 * a22 - s * a02
-    P11 = a01 * a01 + a11 * a11 + a12 * a12 - s * a11 + t
-    P12 = a01 * a02 + a11 * a12 + a12 * a22 - s * a12
-    P22 = a02 * a02 + a12 * a12 + a22 * a22 - s * a22 + t
-
-    n0 = P00 * P00 + P01 * P01 + P02 * P02
-    n1 = P01 * P01 + P11 * P11 + P12 * P12
-    n2 = P02 * P02 + P12 * P12 + P22 * P22
-    m0 = (n0 >= n1) & (n0 >= n2)
-    m1 = n1 >= n2
-    vx = torch.where(m0, P00, torch.where(m1, P01, P02))
-    vy = torch.where(m0, P01, torch.where(m1, P11, P12))
-    vz = torch.where(m0, P02, torch.where(m1, P12, P22))
-    vn = sqrt_rn(vx * vx + vy * vy + vz * vz)
-    ok = vn > 1e-20
-    inv = 1.0 / torch.clamp_min(vn, 1e-30)
-    return (torch.where(ok, vx * inv, 0.0), torch.where(ok, vy * inv, 0.0),
-            torch.where(ok, vz * inv, 1.0))
+    return _projector_column(a00, a01, a02, a11, a12, a22, s, t, sqrt_rn)
 
 
 def estimate_normals(

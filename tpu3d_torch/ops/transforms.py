@@ -12,6 +12,7 @@ so results agree to rounding.
 from __future__ import annotations
 
 import numpy as np
+import scipy.linalg
 import torch
 
 
@@ -20,7 +21,9 @@ def kabsch_from_cross_cov(sw, sp, sq, H) -> tuple[np.ndarray, np.ndarray]:
     (the ICP loop solves there after its one readback): sw = Σw, sp/sq the
     weighted coordinate sums, H (3, 3) the centred weighted
     cross-covariance Σ w (p − p̄)(q − q̄)ᵀ. SVD with the reflection fix, as
-    the JAX package's ``kabsch_from_cross_cov``. A non-finite H gives a
+    the JAX package's ``kabsch_from_cross_cov``; the SVD is LAPACK's
+    ``sgesdd`` through scipy, the routine ``jnp.linalg.svd`` calls on the
+    CPU, so both packages factor a 3×3 the same way. A non-finite H gives a
     non-finite pose, which the loop's finite guard catches."""
     sws = np.maximum(np.float32(sw), np.float32(1e-12))
     src_mean = np.asarray(sp, np.float32) / sws
@@ -29,7 +32,7 @@ def kabsch_from_cross_cov(sw, sp, sq, H) -> tuple[np.ndarray, np.ndarray]:
     if not np.isfinite(H).all():
         nan = np.float32(np.nan)
         return np.full((3, 3), nan, np.float32), np.full(3, nan, np.float32)
-    U, _, Vt = np.linalg.svd(H)
+    U, _, Vt = scipy.linalg.svd(H)
     V = Vt.T
     R = V @ U.T
     if np.linalg.det(R) < 0:

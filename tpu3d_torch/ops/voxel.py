@@ -1,6 +1,7 @@
 """Voxel-grid downsampling as sort + segment sum.
 
-Counterpart of ``tpu3d/ops/voxel.py`` (``voxel_downsample``, ``compact``).
+Counterpart of ``tpu3d/ops/voxel.py`` (``voxel_downsample``, ``voxel_count``,
+``compact``).
 The JAX ``lexsort`` becomes three stable sorts (last key first), and
 ``segment_sum`` a sum over each voxel's run of sorted rows
 (``torch.segment_reduce``), which adds the rows in order on the CPU and
@@ -65,6 +66,13 @@ def voxel_downsample(cloud: PointCloud, voxel_size: float) -> PointCloud:
     if cloud.colors is not None:
         out_colors = segment_sum(cloud.colors[order] * w[:, None]) / denom
     return PointCloud(points=sums / denom, mask=counts > 0, colors=out_colors)
+
+
+def voxel_count(cloud: PointCloud, voxel_size: float) -> torch.Tensor:
+    """Number of occupied voxels, as an int32 0-d tensor on the cloud's
+    device (no readback): a compaction capacity can be picked from it
+    without keeping the downsampled cloud."""
+    return voxel_downsample(cloud, voxel_size).mask.sum(dtype=torch.int32)
 
 
 def compact(cloud: PointCloud, capacity: int) -> PointCloud:
