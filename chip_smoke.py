@@ -232,6 +232,7 @@ KERNEL_FUNCTIONS = {
     "fpfh_sweep": ["fpfh_kernel", "fpfh_lanes_kernel"],
     "nn_top1": ["nn_desc_kernel", "nn_desc_reduce", "nn_top1_kernel"],
     "ransac_score": ["score_tc_kernel", "score_reduce"],
+    "ransac_hyp": ["ransac_hyp_kernel"],
     "icp_p2plane_stats": ["icp_stats_kernel"],
     "icp_matches": ["icp_stats_kernel"],
     "bilateral_filter": ["bilateral_kernel"],
@@ -999,7 +1000,7 @@ def sparse_sweeps(torch, features, fused_features, cloud, radius, r2,
                    entries, sfx, blocks=blocks)
 
 
-def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7, k7m):
+def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7, k7m, k10):
     """Phase 4: the at-scale route (sparse arm)."""
     import tpu3d_torch
     from tpu3d_torch import registration as reg
@@ -1076,6 +1077,11 @@ def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7, k7m):
     w16t, tn, _, _, _ = ransac.solve_rotation_chunk(
         lambda e: draw(0, e), ransac.hypothesis_chunk(iters), 0, table,
         count, iters)
+    h = ransac.hypothesis_chunk(iters)
+    params = torch.tensor(ransac.epoch_params(
+        lambda e: draw(0, e), -(-h // (table.shape[1] // 2)), 0, count,
+        iters), dtype=torch.int32, device=dev)
+    hyp_phase(torch, ransac, table, params, h, "", k10)
     feat_e, pq_e = ransac.build_scoring_factors(
         *(ransac.strided_rows(x, 2048) for x in (p, qq, sm)))
     thr2 = float((np.float32(voxel) * np.float32(1.5)) ** 2)
@@ -1101,7 +1107,7 @@ def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7, k7m):
     pair()  # warm: allocator and library state
     counters = [k for _, k in sweeps] + [
         nn.nearest_neighbor, ransac_score.score_hypotheses,
-        icp_stats.icp_p2plane_stats]
+        icp_stats.icp_p2plane_stats, ransac.rotation_hypotheses]
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1112,9 +1118,9 @@ def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7, k7m):
     first_ms = (time.perf_counter() - t0) * 1e3
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     launches = [c.launches for c in counters]
-    log(f"at-scale main path launches K2/K3/K4/K5/K6/K7: {launches}")
+    log(f"at-scale main path launches K2/K3/K4/K5/K6/K7/K10: {launches}")
     check(all(n > 0 for n in launches), f"a kernel did not launch: {launches}")
-    entries = [e for e, _ in sweeps] + [k5, k6, k7]
+    entries = [e for e, _ in sweeps] + [k5, k6, k7, k10]
     for e, n in zip(entries, launches):
         e["launches"] = n
     rot_err, trn_err = gate(np, refined, R_true, t_true)
@@ -1165,6 +1171,40 @@ def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7, k7m):
             R_true, t_true, "at scale, point-to-point", k7m),
     }
     return [e for e, _ in sweeps], route
+
+
+def hyp_phase(torch, ransac, table, params, h, suffix, entry):
+    """K10 against its plain version run on the card, on one chunk's
+    table and params: the flags equal and the w16 columns and ‖t‖² bit for
+    bit (both round each operation once and contract the same products)."""
+    kw, kt, kd = ransac.rotation_hypotheses(table, params, h)
+    pw, pt, pd = ransac.rotation_hypotheses_plain(table, params, h)
+    torch.cuda.synchronize()
+    err = max(float((kw - pw).abs().max()), float((kt - pt).abs().max()))
+    same = float(((kw == pw).all(0) & (kt == pt)).float().mean())
+    flags = bool(torch.equal(kd, pd))
+    log(f"K10{suffix} H={h} table {tuple(table.shape)}: max |w16 diff| "
+        f"{err:.3e}, columns bit for bit {same:.6f}, flags equal {flags}, "
+        f"disabled {int(kd.sum())}")
+    check(flags and err == 0.0, f"K10{suffix} disagrees with its plain "
+          f"version: max diff {err}, flags equal {flags}")
+    b_ms, b_by = bound(ransac.FLOPS_PER_HYPOTHESIS * h,
+                       nbytes(table, params, kw, kt, kd))
+    entry.update({
+        f"max_abs_err{suffix}": err, f"bit_for_bit{suffix}": same,
+        f"ms{suffix}": cuda_ms(
+            torch, lambda: ransac.rotation_hypotheses(table, params, h)),
+        f"plain_ms{suffix}": cuda_ms(
+            torch, lambda: ransac.rotation_hypotheses_plain(table, params,
+                                                            h)),
+        f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by,
+        f"device_ms{suffix}": per_call_device_ms(
+            torch, lambda: ransac.rotation_hypotheses(table, params, h)),
+        f"library_ms{suffix}": None,
+    })
+    log(f"K10{suffix}: {entry['ms' + suffix]:.4f} ms (device "
+        f"{entry['device_ms' + suffix]:.4f}), plain "
+        f"{entry['plain_ms' + suffix]:.4f}, bound {b_ms:.5f} ({b_by})")
 
 
 def per_call_device_ms(torch, fn, calls=10):
@@ -1483,12 +1523,18 @@ def bin_frame_route(torch, np, counters, tmp, frame, K, voxel=0.002,
     save_ply(cfg.reference_model_path, cloud.points[cloud.mask].cpu().numpy())
     probe = RunProbe(torch, pl, pipe)
 
+    from tpu3d_torch.ops import ransac
+
     reset_counts(counters)
+    ransac.rotation_hypotheses.launches = 0
     torch.cuda.reset_peak_memory_stats()
     waypoints, first_ms, _ = probe.run()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     launches = launch_counts(counters)
-    log(f"bin frame: launches {launches}")
+    # K10 runs where an instance takes the rotation sampler (n >= 2,048;
+    # not with two_stage on).
+    k10_launches = ransac.rotation_hypotheses.launches
+    log(f"bin frame: launches {launches}, K10 {k10_launches}")
     prepared = [probe.prepared[i] for i in range(len(probe.prepared))]
     poses = probe.poses
     check(len(prepared) == 4 and all(p is not None for p in prepared),
@@ -1530,8 +1576,8 @@ def bin_frame_route(torch, np, counters, tmp, frame, K, voxel=0.002,
             "fitness": [r["fitness"] for r in results],
             "coarse_fitness": [r["coarse_fitness"] for r in results],
             "pose_errors": errs,
-            "launches": launches, "pipeline_ms_cold": first_ms,
-            "pipeline_ms_warm": again,
+            "launches": launches, "k10_launches": k10_launches,
+            "pipeline_ms_cold": first_ms, "pipeline_ms_warm": again,
         }
     if entries is not None:
         bin_shapes(torch, np, probe, voxel, entries)
@@ -1541,6 +1587,16 @@ def bin_frame_route(torch, np, counters, tmp, frame, K, voxel=0.002,
         warm.append(probe.run())
         check(same_poses(np, poses, probe.poses),
               "a warm run's poses differ from the cold run's")
+    # The same frame with RANSAC's chunks run eagerly, not replayed.
+    ransac.CHUNK_GRAPH = False
+    try:
+        eager_ms = probe.run()[1]
+    finally:
+        ransac.CHUNK_GRAPH = True
+    check(same_poses(np, poses, probe.poses),
+          "the eager chunks' poses differ from the graph's")
+    log(f"bin frame: eager chunks {eager_ms:.1f} ms, poses equal the "
+        f"graph's")
     busy = device_busy_ms(torch, probe.run)
     return {
         "route": "pipeline, bin frame",
@@ -1555,8 +1611,10 @@ def bin_frame_route(torch, np, counters, tmp, frame, K, voxel=0.002,
         "fitness": [r["fitness"] for r in results],
         "coarse_fitness": [r["coarse_fitness"] for r in results],
         "pose_errors": errs, "waypoints_after_dedup": len(waypoints),
-        "launches": launches, "pipeline_ms_cold": first_ms,
+        "launches": launches, "k10_launches": k10_launches,
+        "pipeline_ms_cold": first_ms,
         "pipeline_ms_warm": [ms for _, ms, _ in warm],
+        "pipeline_ms_warm_eager_chunks": eager_ms,
         "stages_ms": warm[-1][2], "peak_mem_mb": peak_mb,
         "device_busy_ms": busy,
     }
@@ -2920,6 +2978,157 @@ def examples_phase(torch, np, dev, counters):
     return routes
 
 
+# --------------------------------------------------------------------------
+# Phase 10: RANSAC's chunk as one CUDA graph replay
+# --------------------------------------------------------------------------
+
+API_LAUNCHES = ("Launch", "Memcpy", "Memset")
+
+
+def api_launches(torch, fn):
+    """{CUDA API call: count} of the launches, copies and sets that one
+    call of ``fn`` makes (torch.profiler's runtime rows: a graph replay is
+    one cudaGraphLaunch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.key.startswith("cu")
+            and any(w in ev.key for w in API_LAUNCHES)}
+
+
+class ChunkRecorder:
+    """A draw stream that records the chunks it was asked for."""
+
+    def __init__(self, ransac, seed):
+        self.inner = ransac.torch_draws(seed)
+        self.chunks = set()
+
+    def __call__(self, c, e):
+        self.chunks.add(c)
+        return self.inner(c, e)
+
+    def triples(self, c, h, count):
+        return self.inner.triples(c, h, count)
+
+    def rows(self, n, count):
+        return self.inner.rows(n, count)
+
+
+def chunk_graph_phase(torch, np, dev, args):
+    """Phase 10: on phase 4's pair, RANSAC on the sparse subset (as the
+    main path calls it) with its chunks replayed as one CUDA graph against
+    the same chunks run eagerly: the same winner and pose bit for bit,
+    RANSAC's CUDA API launches a chunk either way, host and device time in
+    turns (eager, graph, graph, eager); then ``register_pair`` either way,
+    the same pose, through the gate."""
+    import tpu3d_torch
+    from tpu3d_torch import registration as reg
+    from tpu3d_torch.models.fixtures import make_pair
+    from tpu3d_torch.ops import fused_features, ransac
+
+    t_phase = time.perf_counter()
+    src_np, tgt_np, R_true, t_true = make_pair(args.points)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=args.voxel)
+    src = tpu3d_torch.PointCloud.from_numpy(src_np, device=dev)
+    tgt = tpu3d_torch.PointCloud.from_numpy(tgt_np, device=dev)
+    sd = reg.downsample_bucketed(src, cfg)
+    td = reg.downsample_bucketed(tgt, cfg)
+    radius = float(np.float32(args.voxel * 5.0))
+    tdp, tf = reg.prepare_features(td, cfg, "fused")
+    tf = ransac.with_target_operand(tf)
+    sub_c, sub_f, _ = fused_features.fused_prepare_sparse(sd, radius)
+    iters = cfg.ransac_max_iterations
+    h = ransac.hypothesis_chunk(iters)
+
+    def rs(graph, **kw):
+        rec = ChunkRecorder(ransac, cfg.ransac_seed)
+        ransac.CHUNK_GRAPH = graph
+        try:
+            res = ransac.ransac_registration(
+                sub_c, tdp, sub_f, tf, args.voxel, seed=cfg.ransac_seed,
+                corr_mode="exact", draws=rec, **dict(
+                    dict(max_iterations=iters,
+                         confidence=cfg.ransac_confidence), **kw))
+            torch.cuda.synchronize()
+        finally:
+            ransac.CHUNK_GRAPH = True
+        return res, len(rec.chunks)
+
+    out = {"route": "RANSAC chunks: CUDA graph against eager",
+           "fixture": f"make_pair({args.points}), voxel {args.voxel}, the "
+                      "sparse subset", "hyp_chunk": h}
+    (res_e, ch_e), (res_g, ch_g) = rs(False), rs(True)
+    same = (torch.equal(res_e.transformation, res_g.transformation)
+            and float(res_e.fitness) == float(res_g.fitness)
+            and ch_e == ch_g)
+    log(f"RANSAC graph vs eager: {ch_g} chunks, fitness "
+        f"{float(res_g.fitness):.5f} / {float(res_e.fitness):.5f}, pose bit "
+        f"for bit {same}")
+    check(same, "the graph-replayed chunks disagree with the eager ones")
+    out["chunks"] = ch_g
+    out["fitness"] = float(res_g.fitness)
+    # Launches a chunk: calls that run every chunk of the budget
+    # (confidence 1.0), against calls of the fewest chunks the chunked
+    # route runs (a budget of one chunk and one hypothesis).
+    few_kw = dict(confidence=1.0, max_iterations=h + 1, hyp_chunk=h)
+    for graph in (False, True):
+        name = "graph" if graph else "eager"
+        # Warm: the graph of this shape is captured outside the count.
+        c_many = rs(graph, confidence=1.0)[1]
+        c_few = rs(graph, **few_kw)[1]
+        many = api_launches(torch, lambda: rs(graph, confidence=1.0))
+        few = api_launches(torch, lambda: rs(graph, **few_kw))
+        per = (sum(many.values()) - sum(few.values())) / max(
+            c_many - c_few, 1)
+        out[f"api_launches_{name}"] = many
+        out[f"api_launches_per_chunk_{name}"] = per
+        out[f"chunks_all_budget_{name}"] = c_many
+        log(f"RANSAC {name}: {sum(many.values())} API launches over "
+            f"{c_many} chunks, {sum(few.values())} over {c_few}: {per:.1f} "
+            f"a chunk; {many}")
+    # Host time of the main path's RANSAC call, in turns, and device busy.
+    times = {"eager": [], "graph": []}
+    for graph in (False, True, True, False):
+        times["graph" if graph else "eager"] += host_ms(
+            torch, lambda: rs(graph), warm=1, reps=3)[0]
+    for name, t in times.items():
+        out[f"ransac_ms_{name}"] = t
+        out[f"ransac_ms_{name}_median"] = statistics.median(t)
+        out[f"device_busy_ms_{name}"] = device_busy_ms(
+            torch, lambda: rs(name == "graph"))
+    log(f"RANSAC main-path call: eager median "
+        f"{out['ransac_ms_eager_median']:.2f} ms, graph median "
+        f"{out['ransac_ms_graph_median']:.2f} ms; device busy "
+        f"{out['device_busy_ms_eager']:.3f} / "
+        f"{out['device_busy_ms_graph']:.3f} ms")
+    # The whole pair either way.
+    poses, pair_ms = {}, {}
+    for graph in (False, True):
+        ransac.CHUNK_GRAPH = graph
+        try:
+            t, (refined, _) = host_ms(
+                torch, lambda: tpu3d_torch.register_pair(src, tgt, cfg),
+                warm=1, reps=3)
+        finally:
+            ransac.CHUNK_GRAPH = True
+        name = "graph" if graph else "eager"
+        rot_err, trn_err = gate(np, refined, R_true, t_true)
+        poses[name] = refined.transformation
+        pair_ms[name] = t
+        out[f"pair_ms_{name}"] = t
+        out[f"pair_errors_{name}"] = [rot_err, trn_err]
+    check(torch.equal(poses["eager"], poses["graph"]),
+          "register_pair's pose differs between graph and eager chunks")
+    log(f"register_pair: eager {pair_ms['eager']} ms, graph "
+        f"{pair_ms['graph']} ms, poses bit for bit")
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def run(args):
     import numpy as np
     import torch
@@ -2966,9 +3175,13 @@ def run(args):
                         "point-to-point ICP)",
                 "route": "cuda", "source": "tpu3d_torch/csrc/icp_stats.cu",
                 "replaces": "tpu3d/ops/icp_pallas.py:141"})
+    k10 = {"name": "ransac_hyp (K10)", "route": "cuda",
+           "source": "tpu3d_torch/csrc/ransac_hyp.cu",
+           "replaces": "tpu3d/ops/ransac.py:173 (XLA-compiled, no "
+                       "pallas_call)"}
     card_states["phase 4"] = card_state()
     sweeps, scale_route = at_scale_route(torch, np, dev, args.points,
-                                         args.voxel, k5, k6, k7, k7m)
+                                         args.voxel, k5, k6, k7, k7m, k10)
     scale_route["build_s"] = build_s
 
     from tpu3d_torch.ops import (
@@ -3016,12 +3229,15 @@ def run(args):
     sharded_routes = sharded_phase(torch, np, dev, args,
                                    sweeps + [k5, k6, k8], sharded_counters)
     k7m["launches_pipeline_knobs"] = bin_route["knobs"]["launches"]["K7"]
-    kernels = kernels + [k7m]
+    k10["launches_pipeline"] = bin_route["k10_launches"]
+    kernels = kernels + [k7m, k10]
     card_states["phase 9"] = card_state()
     example_counters = {k: f for k, f in counters.items() if k != "K9"}
     example_counters.update({"K7m": icp_stats.icp_matches,
                              "K8": nn_walk.top1_walk})
     example_routes = examples_phase(torch, np, dev, example_counters)
+    card_states["phase 10"] = card_state()
+    graph_route = chunk_graph_phase(torch, np, dev, args)
     for entry, name in zip(sweeps + [k5, k6, k7, k7m, k8],
                            ("K2", "K3", "K4", "K5", "K6", "K7", "K7m", "K8")):
         entry["launches_example"] = example_routes[0]["launches"][name]
@@ -3046,7 +3262,7 @@ def run(args):
     scene_routes[-1]["card_states"] = card_states
     for route in ([ref_route, scale_route, cli, bin_route, host]
                   + scene_routes + entry_routes + sharded_routes
-                  + example_routes):
+                  + example_routes + [graph_route]):
         print(json.dumps(route), flush=True)
     return {
         "ok": True,

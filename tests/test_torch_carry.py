@@ -1,5 +1,6 @@
 """The PyTorch port's state carry, config and import hygiene."""
 
+import ast
 import dataclasses
 import os
 import subprocess
@@ -122,6 +123,32 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _port_sources():
+    root = os.path.join(_REPO, "tpu3d_torch")
+    out = [os.path.join(_REPO, "chip_smoke.py")]
+    for d, _, files in os.walk(root):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_no_module_of_the_port_imports_jax():
+    """No module of tpu3d_torch/ and no part of chip_smoke.py imports jax,
+    jaxlib or the JAX package, at the top or inside a function."""
+    sources = _port_sources()
+    assert len(sources) > 40
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                roots = {node.module.split(".")[0]}
+            else:
+                continue
+            assert not roots & {"jax", "jaxlib", "tpu3d"}, (path, roots)
 
 
 def test_search_indexes_round_trip(rng):

@@ -1253,3 +1253,153 @@ def test_sharded_prepare_on_virtual_mesh_equals_one_device(dev):
                                             device=dev))
     agree = (idx == torch.arange(int(v.sum()), device=dev)).float().mean()
     assert float(agree) >= 0.91
+
+
+def _hyp_inputs(n, count, h, seed, first_id=0, max_it=10**9):
+    """A rotation table of ``count`` valid rows in ``n`` (rigid pairs with
+    outliers and a few duplicated rows) and one chunk's K10 params."""
+    g = torch.Generator().manual_seed(seed)
+    p = torch.rand(n, 3, generator=g) * 0.3 - 0.15
+    q = p @ torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0],
+                          [0.0, 0.0, 1.0]]) + 0.05
+    q += 1e-3 * torch.randn(n, 3, generator=g)
+    out = torch.rand(n, generator=g) < 0.4
+    q[out] = torch.rand(int(out.sum()), 3, generator=g) * 0.3
+    p[1:8] = p[0]  # degenerate triples
+    mask = torch.zeros(n, dtype=torch.bool)
+    mask[torch.randperm(n, generator=g)[:count]] = True
+    table = ransac.build_rotation_table(torch.cat([p, q], 1), mask,
+                                        max(count, 1))
+    draw = ransac.torch_draws(seed)
+    params = torch.tensor(ransac.epoch_params(
+        lambda e: draw(0, e), -(-h // n), first_id, max(count, 1), max_it),
+        dtype=torch.int32)
+    return table, params
+
+
+@pytest.mark.parametrize("n,count,h,first_id,max_it", [
+    (8192, 8000, 25600, 0, 10**9), (8192, 8192, 25600, 90000, 100000),
+    (3000, 2999, 7000, 5, 6000), (100, 2, 300, 0, 10**9),
+    (100, 100, 1, 0, 10**9),
+])
+def test_ransac_hyp_kernel_matches_plain(dev, n, count, h, first_id,
+                                         max_it):
+    """K10 against its plain version on the CPU and on the card: the
+    disabled flags equal, the w16 columns and ‖t‖² bit for bit (both round
+    every operation once and contract the same products), at the main
+    path's chunk (8,192 x 25,600), with the budget ending mid-chunk, an
+    odd count, and count < 3 (every triple disabled)."""
+    table, params = _hyp_inputs(n, count, h, n + h, first_id, max_it)
+    pw, pt, pd = ransac.rotation_hypotheses(table, params, h)
+    before = ransac.rotation_hypotheses.launches
+    kw, kt, kd = ransac.rotation_hypotheses(table.to(dev), params.to(dev), h)
+    cw, ct, cd = ransac.rotation_hypotheses_plain(table.to(dev),
+                                                  params.to(dev), h)
+    torch.cuda.synchronize()
+    assert ransac.rotation_hypotheses.launches == before + 1
+    assert kw.shape == (16, h) and kd.dtype == torch.bool
+    assert torch.equal(kd.cpu(), pd) and torch.equal(cd.cpu(), pd)
+    assert torch.equal(kw.cpu(), pw) and torch.equal(kt.cpu(), pt)
+    assert torch.equal(cw.cpu(), pw) and torch.equal(ct.cpu(), pt)
+    if count < 3:
+        assert bool(kd.all())
+    assert torch.isfinite(kw).all()
+
+
+def test_ransac_hyp_kernel_rejects_bad_inputs(dev):
+    table, params = _hyp_inputs(256, 200, 512, 0)
+    table, params = table.to(dev), params.to(dev)
+    with pytest.raises(TypeError):
+        ransac.rotation_hypotheses(table.double(), params, 512)
+    with pytest.raises(TypeError):
+        ransac.rotation_hypotheses(table, params.long(), 512)
+    with pytest.raises(ValueError):
+        ransac.rotation_hypotheses(table[:, :-1], params, 512)
+    with pytest.raises(ValueError):
+        ransac.rotation_hypotheses(table, params[:4], 512)
+
+
+@pytest.mark.parametrize("confidence", [0.999, 0.3])
+def test_chunk_graph_equals_eager_on_card(dev, confidence):
+    """RANSAC's chunked rotation route on the bucket-8,192 pair with its
+    chunks replayed as one CUDA graph against the same chunks run
+    eagerly: the same pose and fitness bit for bit, one graph for both
+    calls of a shape (a second call, and one with another valid count,
+    capture nothing), K10 counted once a chunk in both."""
+    src, tgt, _, _ = make_pair(8192, voxel=0.005)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=0.005)
+    from tpu3d_torch import registration as reg
+
+    sd = reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(src, device=dev), cfg)
+    td = reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(tgt, device=dev), cfg)
+    sd, sf = reg.prepare_features(sd, cfg, "fused")
+    td, tf = reg.prepare_features(td, cfg, "fused")
+    chunks = []
+
+    class Draws(type(ransac.torch_draws(0))):
+        def __call__(self, c, e):
+            chunks.append(c)
+            return super().__call__(c, e)
+
+    def run(graph, mask=None):
+        chunks.clear()
+        ransac.CHUNK_GRAPH = graph
+        try:
+            s = sd if mask is None else sd._replace(mask=mask)
+            before = ransac.rotation_hypotheses.launches
+            res = ransac.ransac_registration(
+                s, td, sf, tf, 0.005, confidence=confidence,
+                draws=Draws(42))
+            torch.cuda.synchronize()
+            k10 = ransac.rotation_hypotheses.launches - before
+        finally:
+            ransac.CHUNK_GRAPH = True
+        return res, len(set(chunks)), k10
+
+    eager, n_e, k_e = run(False)
+    graph, n_g, k_g = run(True)
+    assert n_e == n_g >= 1 and k_e == n_e
+    # The first call of a shape runs one eager warm-up chunk, then
+    # replays from chunk 0.
+    assert k_g in (n_g, n_g + 1)
+    assert torch.equal(eager.transformation, graph.transformation)
+    assert float(eager.fitness) == float(graph.fitness)
+    cached = len(ransac._graphs)
+    again, n_a, k_a = run(True)
+    assert torch.equal(again.transformation, graph.transformation)
+    assert len(ransac._graphs) == cached and k_a == n_a
+    fewer = sd.mask.clone()
+    fewer[::3] = False
+    e2 = run(False, fewer)[0]
+    g2, n2, k2 = run(True, fewer)
+    assert len(ransac._graphs) == cached and k2 == n2
+    assert torch.equal(e2.transformation, g2.transformation)
+
+
+def test_sharded_ransac_launches_k10_on_card(dev):
+    """The sharded RANSAC solves each shard's slice of a round by K10."""
+    from tpu3d_torch.parallel import make_mesh
+    from tpu3d_torch.parallel.ransac_sharded import (
+        ransac_registration_sharded,
+    )
+
+    src, tgt, R, t = make_pair(4096, voxel=0.005)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=0.005)
+    from tpu3d_torch import registration as reg
+
+    sd, sf = reg.prepare_features(reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(src, device=dev), cfg), cfg,
+        "fused")
+    td, tf = reg.prepare_features(reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(tgt, device=dev), cfg), cfg,
+        "fused")
+    before = ransac.rotation_hypotheses.launches
+    res = ransac_registration_sharded(sd, td, sf, tf, 0.005,
+                                      make_mesh(devices=[dev] * 2),
+                                      max_iterations=30000)
+    torch.cuda.synchronize()
+    assert ransac.rotation_hypotheses.launches >= before + 2
+    T = res.transformation.cpu().numpy()
+    assert np.abs(T[:3, :3] - R).max() < 0.02

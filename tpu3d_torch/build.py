@@ -44,6 +44,7 @@ SIGNATURES = {
                            _P, _P],
     "tpu3d_ransac_score": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P,
                            _P, _P, _P],
+    "tpu3d_ransac_hyp": [_P, _P, _I, _I, _P, _P, _P, _P],
     "tpu3d_icp_p2plane_stats": [_P] * 4 + [_I] * 3 + [_P, _F, _F, _I]
     + [_P] * 7,
     "tpu3d_moments_sweep": [_P] * 4 + [_I] * 6 + [_F, _P, _P],
@@ -154,8 +155,9 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def count_launch(wrapper) -> None:
-    """Add one to a kernel wrapper's ``launches`` count. The pipeline's
+def count_launch(wrapper, k: int = 1) -> None:
+    """Add ``k`` (one launch, or a CUDA graph replay's launches of the
+    kernel) to a kernel wrapper's ``launches`` count. The pipeline's
     prepare threads launch kernels at once, so the count is locked."""
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        wrapper.launches += k

@@ -4,7 +4,8 @@ Counterpart of ``tpu3d/ops/ransac.py`` (``decimation_stride``,
 ``build_scoring_factors``, ``pack_hypotheses``, ``build_rotation_table``,
 ``solve_rotation_chunk``, ``feature_correspondences`` and the chunked and
 one-shot routes of ``ransac_registration``): 33-D descriptor nearest
-neighbours (K5), 3-point samples solved by QCP, and rank-16 scoring (K6).
+neighbours (K5), 3-point samples solved by QCP (K10 for the rotation
+sampler, ``csrc/ransac_hyp.cu``), and rank-16 scoring (K6).
 Two samplers, as in the JAX package: the gather-free rotation sampler
 (chunked route, n ≥ 2,048) and the gather sampler (three independent
 valid-row draws per hypothesis, duplicates disabled) below that, on the
@@ -14,26 +15,27 @@ for it. ``score_w16`` is
 :func:`tpu3d_torch.ops.ransac_score.score_hypotheses`.
 
 The JAX ``while_loop`` over chunks becomes a Python loop that reads one
-flag back per chunk. The random draws come from an injectable
-:class:`Draws` stream: :func:`torch_draws` by default; tests replay the
-JAX stream.
+flag back per chunk; the chunk's body (K10 → K6 estimate → top-32 → K6
+exact → champion) reads nothing back, and on the card the rotation route
+replays it as one CUDA graph per chunk (:data:`CHUNK_GRAPH`). The random
+draws come from an injectable :class:`Draws` stream on the host
+(:func:`torch_draws` by default; tests replay the JAX stream): a chunk's
+epoch offsets reach K10 as a small int32 tensor (:func:`epoch_params`).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Protocol
 
 import numpy as np
 import torch
 
-from tpu3d_torch.device import launches_kernel
+from tpu3d_torch import build
+from tpu3d_torch.device import launches_kernel, on_device
 from tpu3d_torch.ops.nn import descriptor_targets, nearest_neighbor
 from tpu3d_torch.ops.ransac_score import score_hypotheses
-from tpu3d_torch.ops.transforms import (
-    kabsch3_planes,
-    kabsch_quat,
-    make_transform,
-)
+from tpu3d_torch.ops.transforms import kabsch_quat, make_transform
 from tpu3d_torch.types import FPFHFeatures, PointCloud, RegistrationResult
 
 
@@ -184,44 +186,261 @@ def build_rotation_table(pq_packed, src_mask, count: int):
     return table
 
 
-def solve_rotation_chunk(draw, h, first_id, pq2p, count, max_iterations):
-    """Gather-free 3-point sampling over ceil(h/n) epochs; epoch e pairs
-    valid row i with rows (i + r1) mod count and (i + r2) mod count, from
-    ``draw(e)``. Returns (w16t (16, h), t_norm (h,), disabled (h,),
-    ids (h,), n_consumed): each valid triple consumes one iteration id."""
+# --- K10: the rotation sampler's hypotheses (csrc/ransac_hyp.cu) --------
+
+# Float operations per hypothesis in K10's solve, an fma counted as two,
+# every other arithmetic operation (division and 1/sqrt included) as one:
+# means and centring 51, correlations 45, E0 36, Horn 14, N² 70, traces
+# 43, coefficients 5, 12 Newton steps 168, three adjugate columns 783, two
+# Rayleigh quotients 70, renormalisation 12, R 45, t 21, Rᵀt 15, ‖t‖² 5.
+FLOPS_PER_HYPOTHESIS = 1383
+_THIRD = float(np.float32(1.0 / 3.0))
+
+
+def _fma(a, b, c):
+    """fp32 a·b + c rounded once, as ``__fmaf_rn``: the product is exact in
+    float64 and the sum is rounded to odd there (TwoSum), so the one
+    rounding to fp32 is the correct one."""
+    a, b, c = (x.double() if torch.is_tensor(x) else x for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even & torch.isfinite(s),
+                    torch.nextafter(s, away), s)
+    return s.float()
+
+
+def _rsqrt_rn(x):
+    """1/√x rounded once (``__frsqrt_rn``), from float64."""
+    return (1.0 / torch.sqrt(x.double())).float()
+
+
+def _dot4(x0, y0, x1, y1, x2, y2, x3, y3):
+    """x0·y0 + x1·y1 + x2·y2 + x3·y3 in the JAX sum's order, contracted."""
+    return _fma(x3, y3, _fma(x2, y2, _fma(x0, y0, x1 * y1)))
+
+
+def _det3(A, i0, i1, i2, j0, j1, j2):
+    m1 = _fma(A[i1][j1], A[i2][j2], -(A[i1][j2] * A[i2][j1]))
+    m2 = _fma(A[i1][j0], A[i2][j2], -(A[i1][j2] * A[i2][j0]))
+    m3 = _fma(A[i1][j0], A[i2][j1], -(A[i1][j1] * A[i2][j0]))
+    return _fma(A[i0][j2], m3, _fma(A[i0][j0], m1, -(A[i0][j1] * m2)))
+
+
+def _adj_best_col(N, lam):
+    """The largest adjugate column of N − λI, normalised."""
+    A = [[N[a][b] - lam if a == b else N[a][b] for b in range(4)]
+         for a in range(4)]
+    best, best_norm = None, None
+    for k in range(4):
+        r = [x for x in range(4) if x != k]
+        col = []
+        for i in range(4):
+            c = [x for x in range(4) if x != i]
+            d = _det3(A, *r, *c)
+            col.append(-d if (i + k) % 2 else d)
+        nrm = _dot4(col[0], col[0], col[1], col[1], col[2], col[2],
+                    col[3], col[3])
+        if best is None:
+            best, best_norm = col, nrm
+        else:
+            take = nrm > best_norm
+            best = [torch.where(take, x, y) for x, y in zip(col, best)]
+            best_norm = torch.where(take, nrm, best_norm)
+    # max(best_norm, 1e-60) in fp32 is max(best_norm, 0); NaN propagates.
+    inv = _rsqrt_rn(torch.maximum(best_norm, torch.zeros_like(best_norm)))
+    return [x * inv for x in best]
+
+
+def _rayleigh(N, v):
+    nv = [_dot4(N[a][0], v[0], N[a][1], v[1], N[a][2], v[2], N[a][3], v[3])
+          for a in range(4)]
+    return _dot4(v[0], nv[0], v[1], nv[1], v[2], nv[2], v[3], nv[3])
+
+
+def qcp3_w16(P, Q):
+    """K10's solve on planes: ``P[s][c]``/``Q[s][c]`` are coordinate c of
+    slot s's source and target points, (h,) each. Returns (w16t (16, h),
+    t_norm (h,)). ``tpu3d/ops/transforms.py`` ``kabsch3_planes`` and the
+    w16 packing of ``solve_rotation_chunk``, with each a·b + c of the JAX
+    expression one fused multiply-add (the first product of a sum first)
+    and every other operation rounded once, 1/√x correctly rounded: the
+    kernel's order, line for line."""
+    third = _THIRD
+    psum = [(P[0][c] + P[1][c]) + P[2][c] for c in range(3)]
+    qsum = [(Q[0][c] + Q[1][c]) + Q[2][c] for c in range(3)]
+    pm = [x * third for x in psum]
+    pc = [[_fma(-psum[c], third, P[s][c]) for c in range(3)]
+          for s in range(3)]
+    qc = [[_fma(-qsum[c], third, Q[s][c]) for c in range(3)]
+          for s in range(3)]
+    S = [[_fma(pc[2][a], qc[2][b], _fma(pc[0][a], qc[0][b],
+                                         pc[1][a] * qc[1][b]))
+          for b in range(3)] for a in range(3)]
+    e0 = None
+    for s in range(3):
+        for c in range(3):
+            term = _fma(pc[s][c], pc[s][c], qc[s][c] * qc[s][c])
+            e0 = term if e0 is None else e0 + term
+    e0 = 0.5 * e0
+
+    (sxx, sxy, sxz), (syx, syy, syz), (szx, szy, szz) = S
+    n01, n02, n03 = syz - szy, szx - sxz, sxy - syx
+    n12, n13, n23 = sxy + syx, szx + sxz, syz + szy
+    N = [[(sxx + syy) + szz, n01, n02, n03],
+         [n01, (sxx - syy) - szz, n12, n13],
+         [n02, n12, (syy - sxx) - szz, n23],
+         [n03, n13, n23, (-sxx - syy) + szz]]
+    M = [[None] * 4 for _ in range(4)]
+    for a in range(4):
+        for b in range(a, 4):
+            M[a][b] = M[b][a] = _dot4(N[a][0], N[0][b], N[a][1], N[1][b],
+                                      N[a][2], N[2][b], N[a][3], N[3][b])
+
+    def trace_sum(X, Y):
+        """Σ_a X_aa·Y_aa + 2·Σ_{a<b} X_ab·Y_ab in the JAX order."""
+        off = X[0][2] * Y[0][2]
+        for a, b in ((0, 1), (0, 3), (1, 2), (1, 3), (2, 3)):
+            off = _fma(X[a][b], Y[a][b], off)
+        diag = _dot4(X[0][0], Y[0][0], X[1][1], Y[1][1], X[2][2], Y[2][2],
+                     X[3][3], Y[3][3])
+        return _fma(2.0, off, diag)
+
+    tr2 = ((M[0][0] + M[1][1]) + M[2][2]) + M[3][3]
+    tr3 = trace_sum(N, M)
+    tr4 = trace_sum(M, M)
+    c2 = -0.5 * tr2
+    c1 = -tr3 * third  # XLA divides by 3 as · (1/3)
+    c0 = -0.25 * _fma(c2, tr2, tr4)
+
+    lam = e0  # λ_max ≤ E0: Newton from above
+    for _ in range(12):
+        p = _fma(_fma(_fma(lam, lam, c2), lam, c1), lam, c0)
+        dp = _fma(_fma(4.0 * lam, lam, 2.0 * c2), lam, c1)
+        lam = lam - p / torch.where(dp.abs() > 1e-20, dp, 1e-20)
+
+    v = _adj_best_col(N, lam)
+    for _ in range(2):
+        v = _adj_best_col(N, _rayleigh(N, v))
+    nrm = _dot4(v[0], v[0], v[1], v[1], v[2], v[2], v[3], v[3])
+    ok = torch.isfinite(nrm) & (nrm > 1e-12)
+    inv = _rsqrt_rn(torch.where(ok, nrm, 1.0))
+    q0, qx, qy, qz = (torch.where(ok, x * inv, fb)
+                      for x, fb in zip(v, (1.0, 0.0, 0.0, 0.0)))
+
+    r = [
+        _fma(-qz, qz, _fma(-qy, qy, _fma(q0, q0, qx * qx))),
+        2.0 * _fma(qx, qy, -(q0 * qz)),
+        2.0 * _fma(qx, qz, q0 * qy),
+        2.0 * _fma(qy, qx, q0 * qz),
+        _fma(-qz, qz, _fma(qy, qy, _fma(q0, q0, -(qx * qx)))),
+        2.0 * _fma(qy, qz, -(q0 * qx)),
+        2.0 * _fma(qz, qx, -(q0 * qy)),
+        2.0 * _fma(qz, qy, q0 * qx),
+        _fma(qz, qz, _fma(-qy, qy, _fma(q0, q0, -(qx * qx)))),
+    ]
+    t = [_fma(qsum[a], third,
+              -_fma(r[3 * a + 2], pm[2],
+                    _fma(r[3 * a], pm[0], r[3 * a + 1] * pm[1])))
+         for a in range(3)]
+    u = [_fma(r[6 + a], t[2], _fma(r[a], t[0], r[3 + a] * t[1]))
+         for a in range(3)]
+    w16t = torch.stack(u + t + r + [torch.zeros_like(t[0])])
+    t_norm = _fma(t[2], t[2], _fma(t[0], t[0], t[1] * t[1]))
+    return w16t, t_norm
+
+
+def rotation_hypotheses_plain(pq2p, params, h):
+    """K10's plain version: (w16t (16, h), t_norm (h,), disabled (h,)) of
+    the ``h`` rotation-sampler hypotheses that ``params``
+    (:func:`epoch_params`, a device tensor) describe."""
     n = pq2p.shape[1] // 2
-    n_ep = -(-h // n)
+    dev = pq2p.device
+    first_id, count, max_it = (params[k].long() for k in range(3))
+    j = torch.arange(h, device=dev)
+    e, i = j // n, j % n
+    off = params[3:].long().reshape(-1, 3)[e]  # (h, 3)
+    slots = [pq2p[:, i + off[:, s]] for s in range(3)]  # 3 × (6, h)
+    w16t, t_norm = qcp3_w16([[x[c] for c in range(3)] for x in slots],
+                            [[x[3 + c] for c in range(3)] for x in slots])
+    disabled = ((i >= count) | (first_id + e * count + i >= max_it)
+                | (count < 3))
+    return w16t, t_norm, disabled
+
+
+def rotation_hypotheses(
+    pq2p: torch.Tensor,  # f32[6, 2n] plane table (build_rotation_table)
+    params: torch.Tensor,  # i32[3 + 3·epochs] (epoch_params)
+    h: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K10: (w16t f32[16, h], t_norm f32[h], disabled bool[h]) of a
+    chunk's rotation-sampler hypotheses. CUDA tensors launch the kernel,
+    CPU tensors take the plain version."""
+    if pq2p.ndim != 2 or pq2p.shape[0] != 6 or pq2p.shape[1] % 2:
+        raise ValueError("pq2p must be (6, 2n)")
+    n = pq2p.shape[1] // 2
+    if params.ndim != 1 or params.shape[0] < 3 + 3 * -(-h // n):
+        raise ValueError("params must hold 3 + 3 per epoch")
+    if not launches_kernel(pq2p, params):
+        return rotation_hypotheses_plain(pq2p, params, h)
+    if pq2p.dtype != torch.float32 or params.dtype != torch.int32:
+        raise TypeError("K10 takes a float32 table and int32 params")
+    pq2p, params = pq2p.contiguous(), params.contiguous()
+    dev = pq2p.device
+    w16t = torch.empty((16, h), dtype=torch.float32, device=dev)
+    t_norm = torch.empty((h,), dtype=torch.float32, device=dev)
+    disabled = torch.empty((h,), dtype=torch.bool, device=dev)
+    with on_device(dev):
+        rc = build.library().tpu3d_ransac_hyp(
+            pq2p.data_ptr(), params.data_ptr(), n, h, w16t.data_ptr(),
+            t_norm.data_ptr(), disabled.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "tpu3d_ransac_hyp")
+    build.count_launch(rotation_hypotheses)
+    return w16t, t_norm, disabled
+
+
+rotation_hypotheses.launches = 0
+
+
+def epoch_params(draw, n_ep: int, first_id: int, count: int,
+                 max_iterations: int) -> list[int]:
+    """K10's int32 parameters for one chunk, on the host: [first_id, count,
+    max_iterations] then, per epoch e, the three slot offsets (r0,
+    (r0 + r1) mod count, (r0 + r2) mod count) from ``draw(e)``, so that
+    slot s of valid row i reads table column i + offset."""
     cm1 = max(count - 1, 1)
     cm2 = max(count - 2, 1)
-    slots1, slots2, slots3 = [], [], []
+    out = [first_id, count, max_iterations]
     for e in range(n_ep):
         u0, u1, u2 = draw(e)
         a = u0 % cm1
         r1 = 1 + a
         r2 = 1 + (a + 1 + u1 % cm2) % cm1
         r0 = u2 % max(count, 1)
-        for slots, r in ((slots1, r0), (slots2, (r0 + r1) % count),
-                         (slots3, (r0 + r2) % count)):
-            slots.append(pq2p[:, r:r + n])
-    s1t = torch.cat(slots1, dim=1)[:, :h]
-    s2t = torch.cat(slots2, dim=1)[:, :h]
-    s3t = torch.cat(slots3, dim=1)[:, :h]
-    valid1 = torch.arange(n, device=pq2p.device) < count
-    vv = valid1.repeat(n_ep)[:h]
-    ids = first_id + torch.cumsum(vv.to(torch.int32), 0) - 1
-    # count < 3: no 3-point sample exists; every triple is disabled.
-    disabled = (~vv) | (ids >= max_iterations) | (count < 3)
-    ps = tuple((st[0], st[1], st[2]) for st in (s1t, s2t, s3t))
-    qs = tuple((st[3], st[4], st[5]) for st in (s1t, s2t, s3t))
-    r_pl, t_pl = kabsch3_planes(ps, qs)
-    u = tuple(
-        r_pl[j] * t_pl[0] + r_pl[3 + j] * t_pl[1] + r_pl[6 + j] * t_pl[2]
-        for j in range(3)
-    )
-    w16t = torch.stack(
-        list(u) + list(t_pl) + list(r_pl) + [torch.zeros_like(t_pl[0])]
-    )
-    t_norm = t_pl[0] * t_pl[0] + t_pl[1] * t_pl[1] + t_pl[2] * t_pl[2]
+        out += [r0, (r0 + r1) % count, (r0 + r2) % count]
+    return out
+
+
+def solve_rotation_chunk(draw, h, first_id, pq2p, count, max_iterations):
+    """Gather-free 3-point sampling over ceil(h/n) epochs; epoch e pairs
+    valid row i with rows (i + r1) mod count and (i + r2) mod count, from
+    ``draw(e)`` (host ints, never a device read). Returns (w16t (16, h),
+    t_norm (h,), disabled (h,), ids (h,), n_consumed): each valid triple
+    consumes one iteration id. K10 on the card."""
+    n = pq2p.shape[1] // 2
+    n_ep = -(-h // n)
+    params = torch.tensor(
+        epoch_params(draw, n_ep, first_id, count, max_iterations),
+        dtype=torch.int32).to(pq2p.device, non_blocking=True)
+    w16t, t_norm, disabled = rotation_hypotheses(pq2p, params, h)
+    # first_id + cumsum(valid slots) − 1: e·count + i on valid slot i of
+    # epoch e, the epoch's last id on the rest.
+    j = torch.arange(h, device=pq2p.device)
+    ids = first_id + (j // n) * count + torch.clamp_max(j % n, count - 1)
     n_consumed = (h // n) * count + min(h % n, count)
     return w16t, t_norm, disabled, ids, n_consumed
 
@@ -345,13 +564,9 @@ def ransac_registration(
         n_chunks_bound = -(-max_iterations // hyp_chunk)
 
     def sample(c, first_id, h):
-        """(w16t, t_norm, disabled, iterations consumed) of ``h``
-        hypotheses from chunk ``c`` of the draw stream (None: one shot)."""
-        if use_rotation:
-            w16t, t_norm, disabled, _, n_cons = solve_rotation_chunk(
-                lambda e: draws(c, e), h, first_id, pq2p, count,
-                max_iterations)
-            return w16t, t_norm, disabled, n_cons
+        """(w16t, t_norm, disabled, iterations consumed) of ``h`` gather-
+        sampled hypotheses from chunk ``c`` of the draw stream (None: one
+        shot)."""
         w16t, t_norm, disabled = solve_gather(
             draws.triples(c, h, count), first_id, perm, pq_packed,
             max_iterations)
@@ -365,9 +580,10 @@ def ransac_registration(
         bf, bw = _one_shot(sample(None, 0, h_total), feat_t, pq_norm, thr2,
                            n_valid, confidence)
     else:
-        bf, bw = _chunks(sample, hyp_chunk, n_chunks_bound, max_iterations,
-                         confidence, thr2, n, count, n_valid, est_cap,
-                         use_rotation, p, q, src_mask, feat_t, pq_norm)
+        rotation = (draws, pq2p, cons) if use_rotation else None
+        bf, bw = _chunks(sample, rotation, hyp_chunk, n_chunks_bound,
+                         max_iterations, confidence, thr2, n, count, n_valid,
+                         est_cap, p, q, src_mask, feat_t, pq_norm)
     best_R = bw[6:15].reshape(3, 3)
     best_t = bw[3:6]
     return _rescore(p, q, src_mask, best_R, best_t, bf, thr2, n_valid)
@@ -413,41 +629,83 @@ def _two_stage(sampled, feat_t, pq_norm, rows, thr2, n_valid, confidence,
     return fit2[best][0], w16t[:, top[best]][:, 0]
 
 
-def _chunks(sample, hyp_chunk, n_chunks_bound, max_iterations, confidence,
-            thr2, n, count, n_valid, est_cap, use_rotation, p, q, src_mask,
-            feat_t, pq_norm):
-    """Chunks of ``hyp_chunk`` hypotheses until one exceeds ``confidence``
-    or the budget is spent: (best fitness, best w16 column)."""
-    device = p.device
-    use_est = n >= 2 * est_cap
-    if use_est:
-        m_e = strided_rows(src_mask, est_cap)
-        feat_e, pq_e = build_scoring_factors(
-            strided_rows(p, est_cap), strided_rows(q, est_cap), m_e)
-        n_valid_e = max(float(m_e.sum()), 1.0)
-        k_fin = min(32, hyp_chunk)
-    h_ids = torch.arange(hyp_chunk, device=device)
+# The chunked rotation route on the card replays one CUDA graph a chunk
+# (K10 → K6 estimate → top-32 → K6 exact → champion → exit flag); False
+# runs the same body eagerly, launch by launch.
+CHUNK_GRAPH = True
+_GRAPH_CACHE_SIZE = 8
+_graphs: dict = {}
+_graphs_lock = threading.Lock()
 
-    def body(c, fid, bf, br, bw):
-        w16t, t_norm, disabled, n_cons = sample(c, fid, hyp_chunk)
-        if use_est:
-            cnt_e, _ = score_hypotheses(feat_e, pq_e, w16t, t_norm, thr2)
-            fitness = torch.where(disabled, -1.0, cnt_e / n_valid_e)
+
+class _ChunkBody:
+    """One chunk of the chunked route on a fixed set of tensors: the
+    scoring inputs, K10's ``params``, the running best (``bf``, ``br``,
+    ``bw``) and the exit flag ``any_ex``. :meth:`step` reads nothing back
+    to the host, so :meth:`rotation_step` can be captured in a CUDA graph
+    (:meth:`replay`); the graph's copy keeps static inputs and a call
+    copies its own into them."""
+
+    def __init__(self, h, use_est, k_fin, thr2, confidence, device):
+        self.h, self.use_est, self.k_fin = h, use_est, k_fin
+        self.thr2, self.confidence = thr2, confidence
+        self.h_ids = torch.arange(h, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.bf = torch.zeros((), **f32)
+        self.br = torch.zeros((), **f32)
+        self.bw = torch.zeros((16,), **f32)
+        self.any_ex = torch.zeros((), dtype=torch.bool, device=device)
+        self.inputs: dict[str, torch.Tensor] = {}
+        self.graph = None
+        self.replay_launches: list = []
+        self.lock = threading.Lock()
+
+    def bind(self, **tensors):
+        self.inputs = tensors
+
+    def load(self, **tensors):
+        """Copy a call's inputs into the static ones (allocated at first)."""
+        if not self.inputs:
+            self.inputs = {k: torch.empty_like(v) for k, v in tensors.items()}
+            self.params_host = torch.empty(
+                tensors["params"].shape, dtype=torch.int32, pin_memory=True)
+        for k, v in tensors.items():
+            if k != "params":
+                self.inputs[k].copy_(v)
+
+    def reset(self):
+        """bf = br = 0 and bw the identity's column."""
+        self.bf.zero_()
+        self.br.zero_()
+        self.bw.zero_()
+        self.bw[6:15:4] = 1.0
+
+    def step(self, w16t, t_norm, disabled):
+        """Score a chunk's hypotheses and fold its champion into the
+        running best, with no host read."""
+        x, h = self.inputs, self.h
+        if self.use_est:
+            cnt, _ = score_hypotheses(x["feat_e"], x["pq_e"], w16t, t_norm,
+                                      self.thr2)
+            fitness = torch.where(disabled, -1.0, cnt / x["n_valid"][0])
         else:
-            cnt, errsum = score_hypotheses(feat_t, pq_norm, w16t, t_norm, thr2)
-            fitness = torch.where(disabled, -1.0, cnt / n_valid)
-        exceed = fitness > confidence
+            cnt, errsum = score_hypotheses(x["feat_t"], x["pq_norm"], w16t,
+                                           t_norm, self.thr2)
+            fitness = torch.where(disabled, -1.0, cnt / x["n_valid"][1])
+        exceed = fitness > self.confidence
         any_ex = exceed.any()
         first = torch.argmax(exceed.to(torch.int8))  # first True
-        cutoff = torch.where(any_ex, first, hyp_chunk - 1)
-        mf = torch.where(h_ids <= cutoff, fitness, -2.0)
-        if use_est:
+        cutoff = torch.where(any_ex, first, h - 1)
+        mf = torch.where(self.h_ids <= cutoff, fitness, -2.0)
+        if self.use_est:
             # lax.top_k order: descending, ties lowest index first.
-            topk = torch.sort(mf, descending=True, stable=True)[1][:k_fin]
+            topk = torch.sort(mf, descending=True, stable=True)[1][
+                :self.k_fin]
             cnt_x, err_x = score_hypotheses(
-                feat_t, pq_norm, w16t[:, topk].contiguous(), t_norm[topk], thr2
-            )
-            fit_x = torch.where(mf[topk] <= -1.0, mf[topk], cnt_x / n_valid)
+                x["feat_t"], x["pq_norm"], w16t[:, topk].contiguous(),
+                t_norm[topk], self.thr2)
+            fit_x = torch.where(mf[topk] <= -1.0, mf[topk],
+                                cnt_x / x["n_valid"][1])
             # Indices stay (1,) tensors: indexing with a 0-d tensor would
             # read it back to the host.
             bi = torch.argmax(fit_x, dim=0, keepdim=True)
@@ -458,32 +716,135 @@ def _chunks(sample, hyp_chunk, n_chunks_bound, max_iterations, confidence,
             lf, lc, le = mf[lb], cnt[lb], errsum[lb]
         lf, lc, le = lf[0], lc[0], le[0]
         lr = torch.where(
-            lc > 0, torch.sqrt(le / torch.clamp_min(lc, 1.0)), 999.0
-        )
-        better = lf > bf  # strict: the earliest chunk keeps ties
-        return (
-            fid + n_cons,
-            bool(any_ex),  # the chunk's one device→host sync
-            torch.where(better, lf, bf),
-            torch.where(better, lr, br),
-            torch.where(better, w16t[:, lb][:, 0], bw),
-        )
+            lc > 0, torch.sqrt(le / torch.clamp_min(lc, 1.0)), 999.0)
+        better = lf > self.bf  # strict: the earliest chunk keeps ties
+        self.br.copy_(torch.where(better, lr, self.br))
+        self.bw.copy_(torch.where(better, w16t[:, lb][:, 0], self.bw))
+        self.bf.copy_(torch.where(better, lf, self.bf))
+        self.any_ex.copy_(any_ex)
 
-    bf = torch.zeros((), dtype=torch.float32, device=device)
-    br = torch.zeros((), dtype=torch.float32, device=device)
-    bw = torch.zeros((16,), dtype=torch.float32, device=device)
-    bw[6:15] = torch.eye(3, dtype=torch.float32, device=device).reshape(9)
-    fid, done, c = 0, False, 0
-    # Chunk 1 always runs (the JAX peel); later chunks while the budget,
-    # the bound and the early exit allow (count < 3 disables every
-    # rotation triple).
-    while c == 0 or (
-        c < n_chunks_bound and fid < max_iterations and not done
-        and (count >= 3 or not use_rotation)
-    ):
-        fid, done, bf, br, bw = body(c, fid, bf, br, bw)
-        c += 1
-    return bf, bw
+    def rotation_step(self):
+        x = self.inputs
+        self.step(*rotation_hypotheses(x["pq2p"], x["params"], self.h))
+
+    def replay(self, params: list[int]):
+        """The chunk with these K10 params, as one graph replay (captured
+        at the first call, after one eager warm-up chunk)."""
+        self.params_host.numpy()[:] = params
+        self.inputs["params"].copy_(self.params_host, non_blocking=True)
+        with on_device(self.bf.device):
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+        for wrapper, k in self.replay_launches:
+            build.count_launch(wrapper, k)
+
+    def _capture(self):
+        dev = self.bf.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.rotation_step()  # warm-up: a real chunk (counted)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.reset()
+        wrappers = (rotation_hypotheses, score_hypotheses)
+        before = [w.launches for w in wrappers]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.rotation_step()
+        # Capture records launches without running them: each replay
+        # launches them.
+        self.replay_launches = []
+        for w, b in zip(wrappers, before):
+            self.replay_launches.append((w, w.launches - b))
+            w.launches = b
+        self.graph = graph
+
+
+def _graph_body(key, make) -> _ChunkBody:
+    with _graphs_lock:
+        body = _graphs.pop(key, None) or make()
+        _graphs[key] = body  # most recent last
+        while len(_graphs) > _GRAPH_CACHE_SIZE:
+            _graphs.pop(next(iter(_graphs)))
+        return body
+
+
+def _chunks(sample, rotation, hyp_chunk, n_chunks_bound, max_iterations,
+            confidence, thr2, n, count, n_valid, est_cap, p, q, src_mask,
+            feat_t, pq_norm):
+    """Chunks of ``hyp_chunk`` hypotheses until one exceeds ``confidence``
+    or the budget is spent: (best fitness, best w16 column). ``rotation``
+    is (draws, the plane table, ids a chunk consumes) for the rotation
+    sampler, None for ``sample``'s gather draws. The only host read is
+    the exit flag, once a chunk; on the card the rotation route replays
+    one CUDA graph a chunk (:data:`CHUNK_GRAPH`)."""
+    device = p.device
+    use_est = n >= 2 * est_cap
+    k_fin = min(32, hyp_chunk)
+    inputs = dict(feat_t=feat_t, pq_norm=pq_norm)
+    n_valid_e = 1.0
+    if use_est:
+        m_e = strided_rows(src_mask, est_cap)
+        inputs["feat_e"], inputs["pq_e"] = build_scoring_factors(
+            strided_rows(p, est_cap), strided_rows(q, est_cap), m_e)
+        n_valid_e = max(float(m_e.sum()), 1.0)
+    inputs["n_valid"] = torch.tensor([n_valid_e, n_valid],
+                                     dtype=torch.float32, device=device)
+    use_graph = (rotation is not None and device.type == "cuda"
+                 and CHUNK_GRAPH)
+    if rotation is not None:
+        draws, pq2p, cons = rotation
+        inputs["pq2p"] = pq2p
+        n_ep = -(-hyp_chunk // (pq2p.shape[1] // 2))
+        inputs["params"] = torch.empty(3 + 3 * n_ep, dtype=torch.int32,
+                                       device=device)
+
+    def make():
+        return _ChunkBody(hyp_chunk, use_est, k_fin, thr2, confidence,
+                          device)
+
+    if use_graph:
+        key = (device, hyp_chunk, use_est, k_fin, thr2, confidence,
+               *((k, tuple(v.shape)) for k, v in sorted(inputs.items())))
+        body = _graph_body(key, make)
+        body.lock.acquire()
+    else:
+        body = make()
+    try:
+        if use_graph:
+            body.load(**inputs)
+        else:
+            body.bind(**inputs)
+        body.reset()
+        fid, done, c = 0, False, 0
+        # Chunk 1 always runs (the JAX peel); later chunks while the
+        # budget, the bound and the early exit allow (count < 3 disables
+        # every rotation triple).
+        while c == 0 or (
+            c < n_chunks_bound and fid < max_iterations and not done
+            and (count >= 3 or rotation is None)
+        ):
+            if rotation is None:
+                w16t, t_norm, disabled, n_cons = sample(c, fid, hyp_chunk)
+                body.step(w16t, t_norm, disabled)
+            else:
+                prm = epoch_params(lambda e: draws(c, e), n_ep, fid, count,
+                                   max_iterations)
+                n_cons = cons
+                if use_graph:
+                    body.replay(prm)
+                else:
+                    body.inputs["params"] = torch.tensor(
+                        prm, dtype=torch.int32).to(device)
+                    body.rotation_step()
+            done = bool(body.any_ex)  # the chunk's one device→host read
+            fid += n_cons
+            c += 1
+        return body.bf.clone(), body.bw.clone()
+    finally:
+        if use_graph:
+            body.lock.release()
 
 
 def _rescore(p, q, src_mask, best_R, best_t, bf, thr2, n_valid):

@@ -3,10 +3,11 @@
 Counterpart of ``tpu3d/ops/transforms.py`` (``make_transform``,
 ``transform_points``, ``invert_transform``, ``euler_xyz_to_matrix``,
 ``matrix_to_rpy_zyx``, ``kabsch``, ``kabsch_quat``, ``_qcp_quat_planes``,
-``kabsch3_planes``, ``kabsch_from_cross_cov``). Plane functions take
-tuples of equally shaped tensors (one per coordinate or matrix entry) and
-do elementwise math only, in the same operation order as the JAX package
-so results agree to rounding.
+``kabsch_from_cross_cov``; ``kabsch3_planes`` is K10's solve,
+``ops/ransac.py`` ``qcp3_w16``). Plane functions take tuples of equally
+shaped tensors (one per coordinate or matrix entry) and do elementwise
+math only, in the same operation order as the JAX package so results
+agree to rounding.
 """
 
 from __future__ import annotations
@@ -244,51 +245,6 @@ def _qcp_quat_planes(
         torch.where(ok, v2 * inv, zero),
         torch.where(ok, v3 * inv, zero),
     )
-
-
-def kabsch3_planes(ps, qs):
-    """3-point Kabsch on planes: ``ps[k][c]`` is coordinate c of sample k
-    for every hypothesis. Returns (9 rotation planes row-major, 3
-    translation planes)."""
-    third = 1.0 / 3.0
-    pm = [(ps[0][c] + ps[1][c] + ps[2][c]) * third for c in range(3)]
-    qm = [(qs[0][c] + qs[1][c] + qs[2][c]) * third for c in range(3)]
-    pc = [[ps[k][c] - pm[c] for c in range(3)] for k in range(3)]
-    qc = [[qs[k][c] - qm[c] for c in range(3)] for k in range(3)]
-
-    def corr(i, j):
-        return (
-            pc[0][i] * qc[0][j] + pc[1][i] * qc[1][j] + pc[2][i] * qc[2][j]
-        )
-
-    sxx, sxy, sxz = corr(0, 0), corr(0, 1), corr(0, 2)
-    syx, syy, syz = corr(1, 0), corr(1, 1), corr(1, 2)
-    szx, szy, szz = corr(2, 0), corr(2, 1), corr(2, 2)
-    e0 = 0.5 * sum(
-        pc[k][c] * pc[k][c] + qc[k][c] * qc[k][c]
-        for k in range(3)
-        for c in range(3)
-    )
-    q0, qx, qy, qz = _qcp_quat_planes(
-        sxx, sxy, sxz, syx, syy, syz, szx, szy, szz, e0
-    )
-    r = (
-        q0 * q0 + qx * qx - qy * qy - qz * qz,
-        2 * (qx * qy - q0 * qz),
-        2 * (qx * qz + q0 * qy),
-        2 * (qy * qx + q0 * qz),
-        q0 * q0 - qx * qx + qy * qy - qz * qz,
-        2 * (qy * qz - q0 * qx),
-        2 * (qz * qx - q0 * qy),
-        2 * (qz * qy + q0 * qx),
-        q0 * q0 - qx * qx - qy * qy + qz * qz,
-    )
-    t = tuple(
-        qm[i] - (r[3 * i] * pm[0] + r[3 * i + 1] * pm[1]
-                 + r[3 * i + 2] * pm[2])
-        for i in range(3)
-    )
-    return r, t
 
 
 def _sum3(a: torch.Tensor) -> torch.Tensor:
