@@ -36,12 +36,16 @@ Phases, each fatal on failure:
         (the share of valid source rows matched within 1.5 x voxel of
         their true-pose position, benchmarks/nn_precision_quality.py's
         metric; the kernel's at least the plain version's - 0.002);
-     d. ``tpu3d_torch.register_pair``: all six launch counts > 0 in that
-        run, the quality gate, the escalation flag, warm pairs, a stage
-        breakdown, peak device memory and one pair's device-busy time
-        (torch.profiler); then with ``two_stage='on'`` (the two-stage
-        scorer ran) and with ``use_point_to_plane=False``, each through
-        the gate;
+        K10 (the rotation sampler's hypotheses) on a chunk of this route
+        and K11 (the gather sampler's) on the same rows at 25,600 (a
+        gather chunk), 4,096 (the 64 batch's one shot) and 100,352
+        hypotheses (the two-stage one shot), each bit for bit;
+     d. ``tpu3d_torch.register_pair``: all seven launch counts (K2-K7,
+        K10) > 0 in that run, the quality gate, the escalation flag, warm
+        pairs, a stage breakdown, peak device memory and one pair's
+        device-busy time (torch.profiler); then with ``two_stage='on'``
+        (the two-stage scorer ran, K11 launched) and with
+        ``use_point_to_plane=False``, each through the gate;
   5. the pipeline (``tpu3d_torch.pipeline.Pipeline``) on 1280 x 720 frames:
      a. K9 (the bilateral filter) against its plain version on the bin
         frame (``models/fixtures.bin_frame``) masked to one instance, at
@@ -160,7 +164,16 @@ Phases, each fatal on failure:
      c. phase 3's point-to-point (K7's match-only epilogue) and 'brute'
         (K5 at D = 3) ICP from its RANSAC pose on the card and on CPU
         copies (the plain versions): both through the gate, the largest
-        pose difference printed and held within 1e-3.
+        pose difference printed and held within 1e-3;
+  10. RANSAC's chunks replayed as one CUDA graph against the same chunks
+     run eagerly (``ransac.CHUNK_GRAPH``): on phase 4's sparse subset (the
+     rotation sampler, K10) and at bucket 8,192 with ``sampling='gather'``
+     (K11, once a chunk either way): the same pose bit for bit, the CUDA
+     API calls a chunk either way, RANSAC's host ms in turns and device
+     busy; then ``register_pair`` on phase 4's pair either way. K11 also
+     launches, and is counted, on the bin frame (5c: the 74-px
+     instance's gather chunks; every instance with ``two_stage: on``),
+     in the 64 batch (6c) and the two-stage pair (4d).
   Kernel and plain times are CUDA events, 2 warm runs, median of 5
   (slab_top1 and K8's plain version: 1 warm run, median of 3); beside
   them ``device_ms``, the device time of one call (10 calls queued behind
@@ -233,6 +246,7 @@ KERNEL_FUNCTIONS = {
     "nn_top1": ["nn_desc_kernel", "nn_desc_reduce", "nn_top1_kernel"],
     "ransac_score": ["score_tc_kernel", "score_reduce"],
     "ransac_hyp": ["ransac_hyp_kernel"],
+    "gather_hyp": ["gather_hyp_kernel"],
     "icp_p2plane_stats": ["icp_stats_kernel"],
     "icp_matches": ["icp_stats_kernel"],
     "bilateral_filter": ["bilateral_kernel"],
@@ -783,14 +797,17 @@ def knob_pair(torch, np, src, tgt, cfg, R_true, t_true, label, k7m=None,
         calls.clear()
         icp_stats.icp_matches.launches = 0
         icp_stats.icp_p2plane_stats.launches = 0
+        ransac.gather_hypotheses.launches = 0
         torch.cuda.synchronize()
         times, (refined, coarse) = host_ms(torch, pair, warm=0, reps=3)
     finally:
         ransac._two_stage = two_stage
     matches = icp_stats.icp_matches.launches
     sums = icp_stats.icp_p2plane_stats.launches
+    k11 = ransac.gather_hypotheses.launches
     if cfg.use_point_to_plane:
         check(calls, f"{label}: the two-stage scorer did not run")
+        check(k11 > 0, f"{label}: K11 did not launch")
     else:
         check(matches > 0 and sums == 0,
               f"{label}: K7 match-only {matches}, sums {sums} launches")
@@ -801,7 +818,7 @@ def knob_pair(torch, np, src, tgt, cfg, R_true, t_true, label, k7m=None,
         f"fitness {float(refined.fitness):.5f}, coarse "
         f"{float(coarse.fitness):.5f}, pairs {[round(t, 2) for t in times]} "
         f"ms, two-stage scorer runs {len(calls) // 3}, K7 match-only "
-        f"launches {matches // 3} a pair")
+        f"launches {matches // 3}, K11 launches {k11 // 3} a pair")
     return {
         "knob": label, "rot_err": rot_err, "trans_err": trn_err,
         "fitness": float(refined.fitness),
@@ -810,6 +827,7 @@ def knob_pair(torch, np, src, tgt, cfg, R_true, t_true, label, k7m=None,
         "two_stage_runs_per_pair": len(calls) // 3,
         "k7_match_only_launches_per_pair": matches // 3,
         "k7_sums_launches_per_pair": sums // 3,
+        "k11_launches_per_pair": k11 // 3,
     }
 
 
@@ -1000,7 +1018,8 @@ def sparse_sweeps(torch, features, fused_features, cloud, radius, r2,
                    entries, sfx, blocks=blocks)
 
 
-def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7, k7m, k10):
+def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7, k7m, k10,
+                   k11):
     """Phase 4: the at-scale route (sparse arm)."""
     import tpu3d_torch
     from tpu3d_torch import registration as reg
@@ -1170,6 +1189,16 @@ def at_scale_route(torch, np, dev, n_points, voxel, k5, k6, k7, k7m, k10):
                 voxel_size=voxel, use_point_to_plane=False),
             R_true, t_true, "at scale, point-to-point", k7m),
     }
+    # K11 on the same rows at the gather routes' sizes: a chunk of this
+    # budget, the 64 batch's one shot (4,096) and the two-stage one shot;
+    # after the main path, so that its times follow what the parent's do.
+    perm = torch.sort((~sm).to(torch.int8), stable=True)[1]
+    pq_packed = torch.cat([p, qq], 1)
+    h_two = -(-iters // 512) * 512
+    for h_g, max_it, sfx in ((h, iters, ""), (4096, 4096, "_batch"),
+                             (h_two, iters, "_two_stage")):
+        gather_phase(torch, ransac, perm, pq_packed, count, h_g, max_it,
+                     cfg.ransac_seed, sfx, k11)
     return [e for e, _ in sweeps], route
 
 
@@ -1203,6 +1232,51 @@ def hyp_phase(torch, ransac, table, params, h, suffix, entry):
         f"library_ms{suffix}": None,
     })
     log(f"K10{suffix}: {entry['ms' + suffix]:.4f} ms (device "
+        f"{entry['device_ms' + suffix]:.4f}), plain "
+        f"{entry['plain_ms' + suffix]:.4f}, bound {b_ms:.5f} ({b_by})")
+
+
+def gather_phase(torch, ransac, perm, pq, count, h, max_it, seed, suffix,
+                 entry):
+    """K11 against its plain version run on the card, on ``h`` triples of
+    the default draw stream over these rows: the flags equal and the w16
+    columns and ‖t‖² bit for bit (both round each operation once, in one
+    order)."""
+    tri = ransac.torch_draws(seed).triples(None, h, count)
+    params = ransac.gather_params(tri, 0, max_it, perm.shape[0]).to(
+        perm.device)
+    kw, kt, kd = ransac.gather_hypotheses(params, perm, pq, h)
+    pw, pt, pd = ransac.gather_hypotheses_plain(params, perm, pq, h)
+    torch.cuda.synchronize()
+    err = max(float((kw - pw).abs().max()), float((kt - pt).abs().max()))
+    same = float(((kw == pw).all(0) & (kt == pt)).float().mean())
+    flags = bool(torch.equal(kd, pd))
+    log(f"K11{suffix} H={h} on {perm.shape[0]} rows ({count} valid): max "
+        f"|w16 diff| {err:.3e}, columns bit for bit {same:.6f}, flags equal "
+        f"{flags}, disabled {int(kd.sum())}")
+    check(flags and err == 0.0 and same == 1.0,
+          f"K11{suffix} disagrees with its plain version: max diff {err}, "
+          f"flags equal {flags}")
+    # Bytes: the params, the outputs, and only the rows of perm and pq
+    # that this run's draws reach (each read once).
+    rows = perm[torch.unique(params[2:2 + 3 * h].long())]
+    b_ms, b_by = bound(ransac.GATHER_FLOPS_PER_HYPOTHESIS * h,
+                       nbytes(params, rows, pq[rows], kw, kt, kd))
+    entry.update({
+        f"max_abs_err{suffix}": err, f"bit_for_bit{suffix}": same,
+        f"shape{suffix}": [h, perm.shape[0], count],
+        f"rows_read{suffix}": rows.numel(),
+        f"ms{suffix}": cuda_ms(
+            torch, lambda: ransac.gather_hypotheses(params, perm, pq, h)),
+        f"plain_ms{suffix}": cuda_ms(
+            torch, lambda: ransac.gather_hypotheses_plain(params, perm, pq,
+                                                          h)),
+        f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by,
+        f"device_ms{suffix}": per_call_device_ms(
+            torch, lambda: ransac.gather_hypotheses(params, perm, pq, h)),
+        f"library_ms{suffix}": None,
+    })
+    log(f"K11{suffix}: {entry['ms' + suffix]:.4f} ms (device "
         f"{entry['device_ms' + suffix]:.4f}), plain "
         f"{entry['plain_ms' + suffix]:.4f}, bound {b_ms:.5f} ({b_by})")
 
@@ -1361,8 +1435,12 @@ def cli_demo(torch, counters, tmp):
             super().__init__(*a, **k)
             made.append(self)
 
+    from tpu3d_torch.ops import ransac
+
     saved, cli.Pipeline = cli.Pipeline, Recorded
     reset_counts(counters)
+    ransac.rotation_hypotheses.launches = 0
+    ransac.gather_hypotheses.launches = 0
     try:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(sys.stderr):
@@ -1372,8 +1450,13 @@ def cli_demo(torch, counters, tmp):
     finally:
         cli.Pipeline = saved
     launches = launch_counts(counters)
+    # The demo's 8,192-row correspondence subset takes the rotation
+    # sampler: K10, not K11.
+    hyp_launches = {"K10": ransac.rotation_hypotheses.launches,
+                    "K11": ransac.gather_hypotheses.launches}
     pipe = made[0] if made else None
-    log(f"CLI demo: rc {rc}, {ms:.1f} ms, launches {launches}")
+    log(f"CLI demo: rc {rc}, {ms:.1f} ms, launches {launches}, "
+        f"{hyp_launches}")
     check(rc == 0 and pipe is not None, f"CLI rc {rc}")
     check(pipe.device.type == "cuda", f"CLI ran on {pipe.device}")
     check(len(pipe.waypoints) == 1, f"{len(pipe.waypoints)} waypoints")
@@ -1387,7 +1470,7 @@ def cli_demo(torch, counters, tmp):
                   "visualization: none",
         "rc": rc, "ms": ms, "waypoints": len(pipe.waypoints),
         "fitness": res["fitness"], "coarse_fitness": res["coarse_fitness"],
-        "launches": launches,
+        "launches": launches, "hyp_launches": hyp_launches,
     }
 
 
@@ -1527,14 +1610,19 @@ def bin_frame_route(torch, np, counters, tmp, frame, K, voxel=0.002,
 
     reset_counts(counters)
     ransac.rotation_hypotheses.launches = 0
+    ransac.gather_hypotheses.launches = 0
     torch.cuda.reset_peak_memory_stats()
     waypoints, first_ms, _ = probe.run()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     launches = launch_counts(counters)
     # K10 runs where an instance takes the rotation sampler (n >= 2,048;
-    # not with two_stage on).
+    # not with two_stage on), K11 where it takes the gather sampler (the
+    # 74-px instance's chunks; every instance with two_stage on).
     k10_launches = ransac.rotation_hypotheses.launches
-    log(f"bin frame: launches {launches}, K10 {k10_launches}")
+    k11_launches = ransac.gather_hypotheses.launches
+    log(f"bin frame: launches {launches}, K10 {k10_launches}, K11 "
+        f"{k11_launches}")
+    check(k11_launches > 0, "K11 did not launch on the bin frame")
     prepared = [probe.prepared[i] for i in range(len(probe.prepared))]
     poses = probe.poses
     check(len(prepared) == 4 and all(p is not None for p in prepared),
@@ -1577,6 +1665,7 @@ def bin_frame_route(torch, np, counters, tmp, frame, K, voxel=0.002,
             "coarse_fitness": [r["coarse_fitness"] for r in results],
             "pose_errors": errs,
             "launches": launches, "k10_launches": k10_launches,
+            "k11_launches": k11_launches,
             "pipeline_ms_cold": first_ms, "pipeline_ms_warm": again,
         }
     if entries is not None:
@@ -1612,7 +1701,7 @@ def bin_frame_route(torch, np, counters, tmp, frame, K, voxel=0.002,
         "coarse_fitness": [r["coarse_fitness"] for r in results],
         "pose_errors": errs, "waypoints_after_dedup": len(waypoints),
         "launches": launches, "k10_launches": k10_launches,
-        "pipeline_ms_cold": first_ms,
+        "k11_launches": k11_launches, "pipeline_ms_cold": first_ms,
         "pipeline_ms_warm": [ms for _, ms, _ in warm],
         "pipeline_ms_warm_eager_chunks": eager_ms,
         "stages_ms": warm[-1][2], "peak_mem_mb": peak_mb,
@@ -2124,10 +2213,15 @@ def scene_batch(torch, np, dev, n_inst, entries, counters):
                               ransac_max_iterations=4096,
                               icp_max_iterations=30)
 
+    from tpu3d_torch.ops import ransac
+
     batch()  # warm
     reset_counts(counters)
+    ransac.gather_hypotheses.launches = 0
     times, (refined, _) = host_ms(torch, batch, warm=0, reps=1)
     launches = launch_counts(counters)
+    # 4,096 hypotheses: every member takes the one-shot gather route.
+    k11_launches = ransac.gather_hypotheses.launches
     T = refined.transformation.cpu().numpy()
     fit = refined.fitness.cpu().numpy()
     errs = [(float(np.abs(T[b, :3, :3] - Rb).max()),
@@ -2138,7 +2232,9 @@ def scene_batch(torch, np, dev, n_inst, entries, counters):
     log(f"64 batch: {times[0]:.1f} ms ({n_inst / times[0] * 1e3:.1f} "
         f"instances/s), mean fitness {float(fit.mean()):.4f}, worst pose "
         f"error rot {max(e[0] for e in errs):.2e} trans "
-        f"{max(e[1] for e in errs):.2e} m, launches {launches}")
+        f"{max(e[1] for e in errs):.2e} m, launches {launches}, K11 "
+        f"{k11_launches}")
+    check(k11_launches > 0, "K11 did not launch in the batch")
     check(not failed, f"batch members {failed} failed the gate: "
           f"{[errs[b] for b in failed]}")
     check(all(v > 0 for v in launches.values()),
@@ -2175,6 +2271,7 @@ def scene_batch(torch, np, dev, n_inst, entries, counters):
         "fitness_mean": float(fit.mean()), "fitness_min": float(fit.min()),
         "rot_err_max": max(e[0] for e in errs),
         "trans_err_max": max(e[1] for e in errs), "launches": launches,
+        "k11_launches": k11_launches,
     }
 
 
@@ -3001,7 +3098,8 @@ def api_launches(torch, fn):
 
 
 class ChunkRecorder:
-    """A draw stream that records the chunks it was asked for."""
+    """A draw stream that records the chunks it was asked for (either
+    sampler's; the one-shot draw is chunk None)."""
 
     def __init__(self, ransac, seed):
         self.inner = ransac.torch_draws(seed)
@@ -3012,19 +3110,75 @@ class ChunkRecorder:
         return self.inner(c, e)
 
     def triples(self, c, h, count):
+        if c is not None:
+            self.chunks.add(c)
         return self.inner.triples(c, h, count)
 
     def rows(self, n, count):
         return self.inner.rows(n, count)
 
 
+def graph_against_eager(torch, ransac, rs, h, prefix, out):
+    """RANSAC through ``rs(graph, **kw)`` (its result and chunks run) with
+    the chunks replayed as one CUDA graph against the same chunks run
+    eagerly: the same winner and pose bit for bit, the CUDA API launches
+    a chunk either way, host ms in turns (eager, graph, graph, eager) and
+    device busy, into ``out`` under ``prefix``."""
+    (res_e, ch_e), (res_g, ch_g) = rs(False), rs(True)
+    same = (torch.equal(res_e.transformation, res_g.transformation)
+            and float(res_e.fitness) == float(res_g.fitness)
+            and ch_e == ch_g)
+    log(f"RANSAC {prefix}graph vs eager: {ch_g} chunks, fitness "
+        f"{float(res_g.fitness):.5f} / {float(res_e.fitness):.5f}, pose bit "
+        f"for bit {same}")
+    check(same, f"the graph-replayed {prefix}chunks disagree with the eager "
+          "ones")
+    out[prefix + "chunks"] = ch_g
+    out[prefix + "fitness"] = float(res_g.fitness)
+    # Launches a chunk: calls that run every chunk of the budget
+    # (confidence 1.0), against calls of the fewest chunks the chunked
+    # route runs (a budget of one chunk and one hypothesis).
+    few_kw = dict(confidence=1.0, max_iterations=h + 1, hyp_chunk=h)
+    for graph in (False, True):
+        name = "graph" if graph else "eager"
+        # Warm: the graph of this shape is captured outside the count.
+        c_many = rs(graph, confidence=1.0)[1]
+        c_few = rs(graph, **few_kw)[1]
+        many = api_launches(torch, lambda: rs(graph, confidence=1.0))
+        few = api_launches(torch, lambda: rs(graph, **few_kw))
+        per = (sum(many.values()) - sum(few.values())) / max(
+            c_many - c_few, 1)
+        out[f"{prefix}api_launches_{name}"] = many
+        out[f"{prefix}api_launches_per_chunk_{name}"] = per
+        out[f"{prefix}chunks_all_budget_{name}"] = c_many
+        log(f"RANSAC {prefix}{name}: {sum(many.values())} API launches over "
+            f"{c_many} chunks, {sum(few.values())} over {c_few}: {per:.1f} "
+            f"a chunk; {many}")
+    times = {"eager": [], "graph": []}
+    for graph in (False, True, True, False):
+        times["graph" if graph else "eager"] += host_ms(
+            torch, lambda: rs(graph), warm=1, reps=3)[0]
+    for name, t in times.items():
+        out[f"{prefix}ransac_ms_{name}"] = t
+        out[f"{prefix}ransac_ms_{name}_median"] = statistics.median(t)
+        out[f"{prefix}device_busy_ms_{name}"] = device_busy_ms(
+            torch, lambda: rs(name == "graph"))
+    log(f"RANSAC {prefix}call: eager median "
+        f"{out[prefix + 'ransac_ms_eager_median']:.2f} ms, graph median "
+        f"{out[prefix + 'ransac_ms_graph_median']:.2f} ms; device busy "
+        f"{out[prefix + 'device_busy_ms_eager']:.3f} / "
+        f"{out[prefix + 'device_busy_ms_graph']:.3f} ms")
+
+
 def chunk_graph_phase(torch, np, dev, args):
     """Phase 10: on phase 4's pair, RANSAC on the sparse subset (as the
-    main path calls it) with its chunks replayed as one CUDA graph against
-    the same chunks run eagerly: the same winner and pose bit for bit,
-    RANSAC's CUDA API launches a chunk either way, host and device time in
-    turns (eager, graph, graph, eager); then ``register_pair`` either way,
-    the same pose, through the gate."""
+    main path calls it, the rotation sampler) with its chunks replayed as
+    one CUDA graph against the same chunks run eagerly
+    (``graph_against_eager``), then ``register_pair`` either way, the
+    same pose, through the gate; and the gather sampler's chunks
+    (``sampling='gather'``) at bucket 8,192 the same way (``gather_``
+    keys), K11 launched once a chunk either way. A tree without K11 or
+    the gather graph runs those chunks eagerly both ways."""
     import tpu3d_torch
     from tpu3d_torch import registration as reg
     from tpu3d_torch.models.fixtures import make_pair
@@ -3044,67 +3198,29 @@ def chunk_graph_phase(torch, np, dev, args):
     iters = cfg.ransac_max_iterations
     h = ransac.hypothesis_chunk(iters)
 
-    def rs(graph, **kw):
-        rec = ChunkRecorder(ransac, cfg.ransac_seed)
-        ransac.CHUNK_GRAPH = graph
-        try:
-            res = ransac.ransac_registration(
-                sub_c, tdp, sub_f, tf, args.voxel, seed=cfg.ransac_seed,
-                corr_mode="exact", draws=rec, **dict(
-                    dict(max_iterations=iters,
-                         confidence=cfg.ransac_confidence), **kw))
-            torch.cuda.synchronize()
-        finally:
-            ransac.CHUNK_GRAPH = True
-        return res, len(rec.chunks)
+    def runner(s_c, t_c, s_f, t_f, voxel, **fixed):
+        def rs(graph, **kw):
+            rec = ChunkRecorder(ransac, cfg.ransac_seed)
+            ransac.CHUNK_GRAPH = graph
+            try:
+                res = ransac.ransac_registration(
+                    s_c, t_c, s_f, t_f, voxel, seed=cfg.ransac_seed,
+                    corr_mode="exact", draws=rec, **dict(
+                        dict(max_iterations=iters,
+                             confidence=cfg.ransac_confidence, **fixed),
+                        **kw))
+                torch.cuda.synchronize()
+            finally:
+                ransac.CHUNK_GRAPH = True
+            return res, len(rec.chunks)
+        return rs
 
     out = {"route": "RANSAC chunks: CUDA graph against eager",
            "fixture": f"make_pair({args.points}), voxel {args.voxel}, the "
-                      "sparse subset", "hyp_chunk": h}
-    (res_e, ch_e), (res_g, ch_g) = rs(False), rs(True)
-    same = (torch.equal(res_e.transformation, res_g.transformation)
-            and float(res_e.fitness) == float(res_g.fitness)
-            and ch_e == ch_g)
-    log(f"RANSAC graph vs eager: {ch_g} chunks, fitness "
-        f"{float(res_g.fitness):.5f} / {float(res_e.fitness):.5f}, pose bit "
-        f"for bit {same}")
-    check(same, "the graph-replayed chunks disagree with the eager ones")
-    out["chunks"] = ch_g
-    out["fitness"] = float(res_g.fitness)
-    # Launches a chunk: calls that run every chunk of the budget
-    # (confidence 1.0), against calls of the fewest chunks the chunked
-    # route runs (a budget of one chunk and one hypothesis).
-    few_kw = dict(confidence=1.0, max_iterations=h + 1, hyp_chunk=h)
-    for graph in (False, True):
-        name = "graph" if graph else "eager"
-        # Warm: the graph of this shape is captured outside the count.
-        c_many = rs(graph, confidence=1.0)[1]
-        c_few = rs(graph, **few_kw)[1]
-        many = api_launches(torch, lambda: rs(graph, confidence=1.0))
-        few = api_launches(torch, lambda: rs(graph, **few_kw))
-        per = (sum(many.values()) - sum(few.values())) / max(
-            c_many - c_few, 1)
-        out[f"api_launches_{name}"] = many
-        out[f"api_launches_per_chunk_{name}"] = per
-        out[f"chunks_all_budget_{name}"] = c_many
-        log(f"RANSAC {name}: {sum(many.values())} API launches over "
-            f"{c_many} chunks, {sum(few.values())} over {c_few}: {per:.1f} "
-            f"a chunk; {many}")
-    # Host time of the main path's RANSAC call, in turns, and device busy.
-    times = {"eager": [], "graph": []}
-    for graph in (False, True, True, False):
-        times["graph" if graph else "eager"] += host_ms(
-            torch, lambda: rs(graph), warm=1, reps=3)[0]
-    for name, t in times.items():
-        out[f"ransac_ms_{name}"] = t
-        out[f"ransac_ms_{name}_median"] = statistics.median(t)
-        out[f"device_busy_ms_{name}"] = device_busy_ms(
-            torch, lambda: rs(name == "graph"))
-    log(f"RANSAC main-path call: eager median "
-        f"{out['ransac_ms_eager_median']:.2f} ms, graph median "
-        f"{out['ransac_ms_graph_median']:.2f} ms; device busy "
-        f"{out['device_busy_ms_eager']:.3f} / "
-        f"{out['device_busy_ms_graph']:.3f} ms")
+                      "sparse subset; gather_: make_pair(8192), voxel "
+                      f"{VOXEL}, sampling 'gather'", "hyp_chunk": h}
+    graph_against_eager(torch, ransac, runner(sub_c, tdp, sub_f, tf,
+                                              args.voxel), h, "", out)
     # The whole pair either way.
     poses, pair_ms = {}, {}
     for graph in (False, True):
@@ -3125,6 +3241,28 @@ def chunk_graph_phase(torch, np, dev, args):
           "register_pair's pose differs between graph and eager chunks")
     log(f"register_pair: eager {pair_ms['eager']} ms, graph "
         f"{pair_ms['graph']} ms, poses bit for bit")
+
+    # The gather sampler's chunks at bucket 8,192.
+    g_src, g_tgt, _, _ = make_pair(N_POINTS, voxel=VOXEL)
+    g_cfg = tpu3d_torch.RegistrationConfig(voxel_size=VOXEL)
+    g_s, g_sf = reg.prepare_features(reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(g_src, device=dev), g_cfg), g_cfg,
+        "fused")
+    g_t, g_tf = reg.prepare_features(reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(g_tgt, device=dev), g_cfg), g_cfg,
+        "fused")
+    g_tf = ransac.with_target_operand(g_tf)
+    k11 = getattr(ransac, "gather_hypotheses", None)
+    rs_g = runner(g_s, g_t, g_sf, g_tf, VOXEL, sampling="gather")
+    for graph in (False, True):
+        rs_g(graph)  # warm: the graph is captured outside the count
+        before = k11.launches if k11 else 0
+        chunks = rs_g(graph)[1]
+        launched = (k11.launches - before) if k11 else None
+        out[f"gather_k11_launches_{'graph' if graph else 'eager'}"] = launched
+        check(k11 is None or launched == chunks,
+              f"K11 launched {launched} times over {chunks} gather chunks")
+    graph_against_eager(torch, ransac, rs_g, h, "gather_", out)
     log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -3179,9 +3317,14 @@ def run(args):
            "source": "tpu3d_torch/csrc/ransac_hyp.cu",
            "replaces": "tpu3d/ops/ransac.py:173 (XLA-compiled, no "
                        "pallas_call)"}
+    k11 = {"name": "gather_hyp (K11)", "route": "cuda",
+           "source": "tpu3d_torch/csrc/ransac_hyp.cu",
+           "replaces": "tpu3d/ops/ransac.py:414 (XLA-compiled, no "
+                       "pallas_call)"}
     card_states["phase 4"] = card_state()
     sweeps, scale_route = at_scale_route(torch, np, dev, args.points,
-                                         args.voxel, k5, k6, k7, k7m, k10)
+                                         args.voxel, k5, k6, k7, k7m, k10,
+                                         k11)
     scale_route["build_s"] = build_s
 
     from tpu3d_torch.ops import (
@@ -3230,7 +3373,14 @@ def run(args):
                                    sweeps + [k5, k6, k8], sharded_counters)
     k7m["launches_pipeline_knobs"] = bin_route["knobs"]["launches"]["K7"]
     k10["launches_pipeline"] = bin_route["k10_launches"]
-    kernels = kernels + [k7m, k10]
+    # K11's main path is the pipeline's: the bin frame's small instance.
+    k11["launches"] = bin_route["k11_launches"]
+    k11["launches_pipeline_knobs"] = bin_route["knobs"]["k11_launches"]
+    k11["launches_two_stage_pair"] = (
+        scale_route["two_stage"]["k11_launches_per_pair"])
+    k11["launches_batch"] = scene_routes[2]["k11_launches"]
+    k11["launches_cli"] = cli["hyp_launches"]["K11"]
+    kernels = kernels + [k7m, k10, k11]
     card_states["phase 9"] = card_state()
     example_counters = {k: f for k, f in counters.items() if k != "K9"}
     example_counters.update({"K7m": icp_stats.icp_matches,

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K2-K9 and the probe's) against their plain
+"""The port's CUDA kernels (K2-K11 and the probe's) against their plain
 PyTorch versions, and the pipeline's routes, on the card. Every test here
 needs a CUDA device and skips without one.
 
@@ -868,6 +868,7 @@ def test_gather_routes_on_card(dev, iters):
     cfg = tpu3d_torch.RegistrationConfig(voxel_size=0.005,
                                          ransac_max_iterations=iters)
     before = ransac_score.score_hypotheses.launches
+    k11 = ransac.gather_hypotheses.launches
     refined, coarse = tpu3d_torch.register_pair(
         tpu3d_torch.PointCloud.from_numpy(src, device=dev),
         tpu3d_torch.PointCloud.from_numpy(tgt, device=dev), cfg)
@@ -876,6 +877,7 @@ def test_gather_routes_on_card(dev, iters):
     assert np.abs(T[:3, :3] - R).max() < 0.02
     assert np.abs(T[:3, 3] - t).max() < 0.005
     assert ransac_score.score_hypotheses.launches > before
+    assert ransac.gather_hypotheses.launches > k11
 
 
 def test_pipeline_cli_on_card(dev, tmp_path, capsys):
@@ -1401,5 +1403,148 @@ def test_sharded_ransac_launches_k10_on_card(dev):
                                       max_iterations=30000)
     torch.cuda.synchronize()
     assert ransac.rotation_hypotheses.launches >= before + 2
+    T = res.transformation.cpu().numpy()
+    assert np.abs(T[:3, :3] - R).max() < 0.02
+
+
+def _gather_inputs(n, count, h, seed, first_id=0, max_it=10**9):
+    """``count`` valid rows of ``n`` (rigid pairs with outliers and a few
+    coincident rows), valid first in ``perm``, the packed p|q rows, and
+    one call's K11 params from the default draw stream."""
+    g = torch.Generator().manual_seed(seed)
+    p = torch.rand(n, 3, generator=g) * 0.3 - 0.15
+    q = p @ torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0],
+                          [0.0, 0.0, 1.0]]) + 0.05
+    q += 1e-3 * torch.randn(n, 3, generator=g)
+    out = torch.rand(n, generator=g) < 0.4
+    q[out] = torch.rand(int(out.sum()), 3, generator=g) * 0.3
+    p[1:8], q[1:8] = p[0], q[0]  # degenerate samples
+    mask = torch.zeros(n, dtype=torch.bool)
+    mask[torch.randperm(n, generator=g)[:count]] = True
+    perm = torch.sort((~mask).to(torch.int8), stable=True)[1]
+    tri = ransac.torch_draws(seed).triples(None, h, max(count, 1))
+    params = ransac.gather_params(tri, first_id, max_it, n)
+    return params, perm, torch.cat([p, q], 1)
+
+
+@pytest.mark.parametrize("n,count,h,first_id,max_it", [
+    (8192, 5190, 4096, 0, 4096), (8192, 5190, 25600, 51200, 60000),
+    (8192, 8192, 100352, 0, 100000), (100, 2, 300, 0, 10**9),
+    (1500, 700, 1, 0, 10**9),
+])
+def test_gather_hyp_kernel_matches_plain(dev, n, count, h, first_id,
+                                         max_it):
+    """K11 against its plain version on the CPU and on the card: the
+    disabled flags equal, the w16 columns and ‖t‖² bit for bit (both round
+    every operation once, in one order), at the 64 batch's 4,096, a gather
+    chunk's 25,600 with the budget ending inside it, the two-stage route's
+    100,352 at 100k, count 2 (every triple repeats a row) and one
+    hypothesis."""
+    params, perm, pq = _gather_inputs(n, count, h, n + h, first_id, max_it)
+    pw, pt, pd = ransac.gather_hypotheses(params, perm, pq, h)
+    before = ransac.gather_hypotheses.launches
+    args = (params.to(dev), perm.to(dev), pq.to(dev), h)
+    kw, kt, kd = ransac.gather_hypotheses(*args)
+    cw, ct, cd = ransac.gather_hypotheses_plain(*args)
+    torch.cuda.synchronize()
+    assert ransac.gather_hypotheses.launches == before + 1
+    assert kw.shape == (16, h) and kd.dtype == torch.bool
+    assert torch.equal(kd.cpu(), pd) and torch.equal(cd.cpu(), pd)
+    assert torch.equal(kw.cpu(), cw.cpu()) and torch.equal(kt.cpu(),
+                                                          ct.cpu())
+    assert torch.equal(kw.cpu(), pw) and torch.equal(kt.cpu(), pt)
+    if count < 3:
+        assert bool(kd.all())
+    assert torch.isfinite(kw).all()
+
+
+def test_gather_hyp_kernel_rejects_bad_inputs(dev):
+    params, perm, pq = (x.to(dev) for x in _gather_inputs(256, 200, 512, 0))
+    with pytest.raises(TypeError):
+        ransac.gather_hypotheses(params, perm, pq.double(), 512)
+    with pytest.raises(TypeError):
+        ransac.gather_hypotheses(params, perm.int(), pq, 512)
+    with pytest.raises(TypeError):
+        ransac.gather_hypotheses(params.long(), perm, pq, 512)
+    with pytest.raises(ValueError):
+        ransac.gather_hypotheses(params[:-1], perm, pq, 512)
+    with pytest.raises(ValueError):
+        ransac.gather_hypotheses(params, perm[:-1], pq, 512)
+
+
+@pytest.mark.parametrize("confidence", [0.999, 0.3])
+def test_gather_chunk_graph_equals_eager_on_card(dev, confidence):
+    """RANSAC's chunked gather route (``sampling='gather'``) on the
+    bucket-8,192 pair with its chunks replayed as one CUDA graph against
+    the same chunks run eagerly: the same pose and fitness bit for bit,
+    one graph for both calls of a shape, K11 counted once a chunk."""
+    src, tgt, _, _ = make_pair(8192, voxel=0.005)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=0.005)
+    from tpu3d_torch import registration as reg
+
+    sd = reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(src, device=dev), cfg)
+    td = reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(tgt, device=dev), cfg)
+    sd, sf = reg.prepare_features(sd, cfg, "fused")
+    td, tf = reg.prepare_features(td, cfg, "fused")
+    chunks = []
+
+    class Draws(type(ransac.torch_draws(0))):
+        def triples(self, c, h, count):
+            chunks.append(c)
+            return super().triples(c, h, count)
+
+    def run(graph):
+        chunks.clear()
+        ransac.CHUNK_GRAPH = graph
+        try:
+            before = ransac.gather_hypotheses.launches
+            res = ransac.ransac_registration(
+                sd, td, sf, tf, 0.005, confidence=confidence,
+                sampling="gather", draws=Draws(42))
+            torch.cuda.synchronize()
+            k11 = ransac.gather_hypotheses.launches - before
+        finally:
+            ransac.CHUNK_GRAPH = True
+        return res, len(chunks), k11
+
+    eager, n_e, k_e = run(False)
+    graph, n_g, k_g = run(True)
+    assert n_e == n_g >= 1 and k_e == n_e
+    assert k_g in (n_g, n_g + 1)  # the first call's warm-up chunk
+    assert torch.equal(eager.transformation, graph.transformation)
+    assert float(eager.fitness) == float(graph.fitness)
+    cached = len(ransac._graphs)
+    again, n_a, k_a = run(True)
+    assert torch.equal(again.transformation, graph.transformation)
+    assert len(ransac._graphs) == cached and k_a == n_a
+
+
+def test_sharded_ransac_launches_k11_on_card(dev):
+    """The sharded RANSAC's gather branch solves each shard's slice of a
+    round by K11."""
+    from tpu3d_torch.parallel import make_mesh
+    from tpu3d_torch.parallel.ransac_sharded import (
+        ransac_registration_sharded,
+    )
+
+    src, tgt, R, t = make_pair(4096, voxel=0.005)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=0.005)
+    from tpu3d_torch import registration as reg
+
+    sd, sf = reg.prepare_features(reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(src, device=dev), cfg), cfg,
+        "fused")
+    td, tf = reg.prepare_features(reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(tgt, device=dev), cfg), cfg,
+        "fused")
+    before = ransac.gather_hypotheses.launches
+    res = ransac_registration_sharded(sd, td, sf, tf, 0.005,
+                                      make_mesh(devices=[dev] * 2),
+                                      max_iterations=30000,
+                                      sampling="gather")
+    torch.cuda.synchronize()
+    assert ransac.gather_hypotheses.launches >= before + 2
     T = res.transformation.cpu().numpy()
     assert np.abs(T[:3, :3] - R).max() < 0.02

@@ -45,6 +45,7 @@ SIGNATURES = {
     "tpu3d_ransac_score": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P,
                            _P, _P, _P],
     "tpu3d_ransac_hyp": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "tpu3d_gather_hyp": [_P, _P, _P, _I, _P, _P, _P, _P],
     "tpu3d_icp_p2plane_stats": [_P] * 4 + [_I] * 3 + [_P, _F, _F, _I]
     + [_P] * 7,
     "tpu3d_moments_sweep": [_P] * 4 + [_I] * 6 + [_F, _P, _P],

@@ -5,7 +5,8 @@ Counterpart of ``tpu3d/ops/ransac.py`` (``decimation_stride``,
 ``solve_rotation_chunk``, ``feature_correspondences`` and the chunked and
 one-shot routes of ``ransac_registration``): 33-D descriptor nearest
 neighbours (K5), 3-point samples solved by QCP (K10 for the rotation
-sampler, ``csrc/ransac_hyp.cu``), and rank-16 scoring (K6).
+sampler, K11 for the gather sampler, both ``csrc/ransac_hyp.cu``), and
+rank-16 scoring (K6).
 Two samplers, as in the JAX package: the gather-free rotation sampler
 (chunked route, n ≥ 2,048) and the gather sampler (three independent
 valid-row draws per hypothesis, duplicates disabled) below that, on the
@@ -15,12 +16,14 @@ for it. ``score_w16`` is
 :func:`tpu3d_torch.ops.ransac_score.score_hypotheses`.
 
 The JAX ``while_loop`` over chunks becomes a Python loop that reads one
-flag back per chunk; the chunk's body (K10 → K6 estimate → top-32 → K6
-exact → champion) reads nothing back, and on the card the rotation route
-replays it as one CUDA graph per chunk (:data:`CHUNK_GRAPH`). The random
-draws come from an injectable :class:`Draws` stream on the host
-(:func:`torch_draws` by default; tests replay the JAX stream): a chunk's
-epoch offsets reach K10 as a small int32 tensor (:func:`epoch_params`).
+flag back per chunk; the chunk's body (K10 or K11 → K6 estimate → top-32
+→ K6 exact → champion) reads nothing back, and on the card either
+sampler's route replays it as one CUDA graph per chunk
+(:data:`CHUNK_GRAPH`). The random draws come from an injectable
+:class:`Draws` stream on the host (:func:`torch_draws` by default; tests
+replay the JAX stream): a chunk's epoch offsets reach K10 as a small
+int32 tensor (:func:`epoch_params`), the gather sampler's triples reach
+K11 as int32 in one copy (:func:`gather_params`).
 """
 
 from __future__ import annotations
@@ -159,17 +162,95 @@ def solve_gather(triples, first_id, perm, pq_packed, max_iterations):
     """Gather sampling: hypothesis i takes the valid rows ``perm[triples[i]]``
     (three independent draws; a repeated draw disables it, as the
     reference rejects it), solved by QCP. Returns (w16t (16, h), t_norm
-    (h,), disabled (h,))."""
-    tri = triples.to(perm.device)
+    (h,), disabled (h,)). K11 on the card: the triples go there as int32
+    through pinned memory, in one copy with ``first_id`` and the budget."""
+    h = triples.shape[0]
+    params = gather_params(triples, first_id, max_iterations, perm.shape[0],
+                           pin=perm.is_cuda)
+    return gather_hypotheses(params.to(perm.device, non_blocking=True), perm,
+                             pq_packed, h)
+
+
+# --- K11: the gather sampler's hypotheses (csrc/ransac_hyp.cu) ----------
+
+# Float operations per hypothesis in K11's solve, each arithmetic operation
+# (division and 1/sqrt included) one: means and centring 36, correlations
+# 45, E0 36, Horn 16, N² 70, traces 43, coefficients 6, 12 Newton steps
+# 168, three adjugate columns 783, two Rayleigh quotients 70,
+# renormalisation 12, R 45, t 18, Rᵀt 15, ‖t‖² 5.
+GATHER_FLOPS_PER_HYPOTHESIS = 1368
+
+
+def gather_params(triples, first_id: int, max_iterations: int, n: int,
+                  pin: bool = False) -> torch.Tensor:
+    """K11's int32 parameters on the host: [first_id, max_iterations, then
+    the (h, 3) draws row by row], in pinned memory when ``pin``. Raises
+    when a draw lies outside [0, n), the rows of ``perm``."""
+    tri = torch.as_tensor(triples).reshape(-1, 3).cpu()
     h = tri.shape[0]
+    if h:
+        lo, hi = torch.aminmax(tri)
+        if int(lo) < 0 or int(hi) >= n:
+            raise ValueError(f"draws in [{int(lo)}, {int(hi)}], not in "
+                             f"[0, {n})")
+    out = torch.empty(2 + 3 * h, dtype=torch.int32, pin_memory=pin)
+    out[:2] = torch.tensor([first_id, max_iterations], dtype=torch.int32)
+    out[2:].view(h, 3).copy_(tri)
+    return out
+
+
+def gather_hypotheses_plain(params, perm, pq_packed, h):
+    """K11's plain version: ``solve_gather``'s eager body on the ``h``
+    triples that ``params`` (:func:`gather_params`) holds, each operation
+    rounded once (``kabsch_quat``), so that K11 equals it bit for bit."""
+    tri = params[2:2 + 3 * h].long().reshape(h, 3)
     dup = ((tri[:, 0] == tri[:, 1]) | (tri[:, 1] == tri[:, 2])
            | (tri[:, 0] == tri[:, 2]))
-    ids = first_id + torch.arange(h, device=perm.device)
-    disabled = dup | (ids >= max_iterations)
+    ids = params[0].long() + torch.arange(h, device=params.device)
+    disabled = dup | (ids >= params[1].long())
     s6 = pq_packed[perm[tri]]  # (h, 3, 6)
     Rs, ts = kabsch_quat(s6[..., :3], s6[..., 3:])
     w16t, t_norm = pack_hypotheses(Rs, ts)
     return w16t, t_norm, disabled
+
+
+def gather_hypotheses(
+    params: torch.Tensor,  # i32[2 + 3h] (gather_params)
+    perm: torch.Tensor,  # i64[n] rows, valid first
+    pq_packed: torch.Tensor,  # f32[n, 6] p|q rows
+    h: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K11: (w16t f32[16, h], t_norm f32[h], disabled bool[h]) of ``h``
+    gather-sampled hypotheses. CUDA tensors launch the kernel, CPU
+    tensors take the plain version."""
+    if params.ndim != 1 or params.shape[0] < 2 + 3 * h:
+        raise ValueError("params must hold 2 + 3 per hypothesis")
+    if (perm.ndim != 1 or pq_packed.ndim != 2 or pq_packed.shape[1] != 6
+            or pq_packed.shape[0] != perm.shape[0]):
+        raise ValueError("perm must be (n,) and pq_packed (n, 6)")
+    if not launches_kernel(params, perm, pq_packed):
+        return gather_hypotheses_plain(params, perm, pq_packed, h)
+    if (params.dtype != torch.int32 or perm.dtype != torch.int64
+            or pq_packed.dtype != torch.float32):
+        raise TypeError("K11 takes int32 params, int64 perm and float32 "
+                        "rows")
+    params, perm = params.contiguous(), perm.contiguous()
+    pq_packed = pq_packed.contiguous()
+    dev = pq_packed.device
+    w16t = torch.empty((16, h), dtype=torch.float32, device=dev)
+    t_norm = torch.empty((h,), dtype=torch.float32, device=dev)
+    disabled = torch.empty((h,), dtype=torch.bool, device=dev)
+    with on_device(dev):
+        rc = build.library().tpu3d_gather_hyp(
+            params.data_ptr(), perm.data_ptr(), pq_packed.data_ptr(), h,
+            w16t.data_ptr(), t_norm.data_ptr(), disabled.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "tpu3d_gather_hyp")
+    build.count_launch(gather_hypotheses)
+    return w16t, t_norm, disabled
+
+
+gather_hypotheses.launches = 0
 
 
 def build_rotation_table(pq_packed, src_mask, count: int):
@@ -563,25 +644,23 @@ def ransac_registration(
         perm = torch.sort((~src_mask).to(torch.int8), stable=True)[1]
         n_chunks_bound = -(-max_iterations // hyp_chunk)
 
-    def sample(c, first_id, h):
-        """(w16t, t_norm, disabled, iterations consumed) of ``h`` gather-
-        sampled hypotheses from chunk ``c`` of the draw stream (None: one
-        shot)."""
-        w16t, t_norm, disabled = solve_gather(
-            draws.triples(c, h, count), first_id, perm, pq_packed,
-            max_iterations)
-        return w16t, t_norm, disabled, h
+    def one_shot_sample():
+        """(w16t, t_norm, disabled) of the ``h_total`` gather-sampled
+        hypotheses of the one-shot draw (chunk None)."""
+        return solve_gather(draws.triples(None, h_total, count), 0, perm,
+                            pq_packed, max_iterations)
 
     if two_stage:
         rows = perm[draws.rows(SUB_N, count).to(perm.device)]
-        bf, bw = _two_stage(sample(None, 0, h_total), feat_t, pq_norm, rows,
+        bf, bw = _two_stage(one_shot_sample(), feat_t, pq_norm, rows,
                             thr2, n_valid, confidence, finalists)
     elif not use_chunked:
-        bf, bw = _one_shot(sample(None, 0, h_total), feat_t, pq_norm, thr2,
+        bf, bw = _one_shot(one_shot_sample(), feat_t, pq_norm, thr2,
                            n_valid, confidence)
     else:
-        rotation = (draws, pq2p, cons) if use_rotation else None
-        bf, bw = _chunks(sample, rotation, hyp_chunk, n_chunks_bound,
+        sampler = ((pq2p, cons) if use_rotation else (perm, pq_packed))
+        bf, bw = _chunks(draws, use_rotation, sampler, hyp_chunk,
+                         n_chunks_bound,
                          max_iterations, confidence, thr2, n, count, n_valid,
                          est_cap, p, q, src_mask, feat_t, pq_norm)
     best_R = bw[6:15].reshape(3, 3)
@@ -591,7 +670,7 @@ def ransac_registration(
 
 def _one_shot(sampled, feat_t, pq_norm, thr2, n_valid, confidence):
     """Every hypothesis scored at once: (best fitness, best w16 column)."""
-    w16t, t_norm, disabled, _ = sampled
+    w16t, t_norm, disabled = sampled
     h_total = w16t.shape[1]
     cnt, _ = score_hypotheses(feat_t, pq_norm, w16t, t_norm, thr2)
     fitness = torch.where(disabled, -1.0, cnt / n_valid)
@@ -610,7 +689,7 @@ def _two_stage(sampled, feat_t, pq_norm, rows, thr2, n_valid, confidence,
     over their number), with the early-exit prefix on the estimates;
     stage 2 scores the best ``finalists`` exactly. (best fitness, best w16
     column)."""
-    w16t, t_norm, disabled, _ = sampled
+    w16t, t_norm, disabled = sampled
     h_total = w16t.shape[1]
     cnt1, _ = score_hypotheses(feat_t[:, rows].contiguous(), pq_norm[rows],
                                w16t, t_norm, thr2)
@@ -629,8 +708,8 @@ def _two_stage(sampled, feat_t, pq_norm, rows, thr2, n_valid, confidence,
     return fit2[best][0], w16t[:, top[best]][:, 0]
 
 
-# The chunked rotation route on the card replays one CUDA graph a chunk
-# (K10 → K6 estimate → top-32 → K6 exact → champion → exit flag); False
+# The chunked route on the card replays one CUDA graph a chunk (K10 or
+# K11 → K6 estimate → top-32 → K6 exact → champion → exit flag); False
 # runs the same body eagerly, launch by launch.
 CHUNK_GRAPH = True
 _GRAPH_CACHE_SIZE = 8
@@ -640,13 +719,18 @@ _graphs_lock = threading.Lock()
 
 class _ChunkBody:
     """One chunk of the chunked route on a fixed set of tensors: the
-    scoring inputs, K10's ``params``, the running best (``bf``, ``br``,
-    ``bw``) and the exit flag ``any_ex``. :meth:`step` reads nothing back
-    to the host, so :meth:`rotation_step` can be captured in a CUDA graph
-    (:meth:`replay`); the graph's copy keeps static inputs and a call
-    copies its own into them."""
+    scoring inputs, the sampler's (the rotation table ``pq2p``, or
+    ``perm`` and ``pq_packed``) and its int32 ``params`` (K10's epoch
+    offsets, or K11's first id, budget and triples), the running best
+    (``bf``, ``br``, ``bw``) and the exit flag ``any_ex``. :meth:`step`
+    reads nothing back to the host, so :meth:`chunk_step` can be captured
+    in a CUDA graph (:meth:`replay`); the graph's copy keeps static inputs
+    and a call copies its own into them. ``rotation`` says which sampler's
+    kernel :meth:`chunk_step` launches."""
 
-    def __init__(self, h, use_est, k_fin, thr2, confidence, device):
+    def __init__(self, rotation, h, use_est, k_fin, thr2, confidence,
+                 device):
+        self.rotation = rotation
         self.h, self.use_est, self.k_fin = h, use_est, k_fin
         self.thr2, self.confidence = thr2, confidence
         self.h_ids = torch.arange(h, device=device)
@@ -727,10 +811,27 @@ class _ChunkBody:
         x = self.inputs
         self.step(*rotation_hypotheses(x["pq2p"], x["params"], self.h))
 
-    def replay(self, params: list[int]):
-        """The chunk with these K10 params, as one graph replay (captured
-        at the first call, after one eager warm-up chunk)."""
-        self.params_host.numpy()[:] = params
+    def gather_step(self):
+        x = self.inputs
+        self.step(*gather_hypotheses(x["params"], x["perm"], x["pq_packed"],
+                                     self.h))
+
+    def chunk_step(self):
+        """The chunk's hypotheses by its sampler's kernel, then
+        :meth:`step`."""
+        if self.rotation:
+            self.rotation_step()
+        else:
+            self.gather_step()
+
+    def replay(self, params):
+        """The chunk with these int32 params (a list, or a host tensor), as
+        one graph replay (captured at the first call, after one eager
+        warm-up chunk)."""
+        if torch.is_tensor(params):
+            self.params_host.copy_(params)
+        else:
+            self.params_host.numpy()[:] = params
         self.inputs["params"].copy_(self.params_host, non_blocking=True)
         with on_device(self.bf.device):
             if self.graph is None:
@@ -744,14 +845,14 @@ class _ChunkBody:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self.rotation_step()  # warm-up: a real chunk (counted)
+            self.chunk_step()  # warm-up: a real chunk (counted)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.reset()
-        wrappers = (rotation_hypotheses, score_hypotheses)
+        wrappers = (rotation_hypotheses, gather_hypotheses, score_hypotheses)
         before = [w.launches for w in wrappers]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            self.rotation_step()
+            self.chunk_step()
         # Capture records launches without running them: each replay
         # launches them.
         self.replay_launches = []
@@ -770,15 +871,15 @@ def _graph_body(key, make) -> _ChunkBody:
         return body
 
 
-def _chunks(sample, rotation, hyp_chunk, n_chunks_bound, max_iterations,
-            confidence, thr2, n, count, n_valid, est_cap, p, q, src_mask,
-            feat_t, pq_norm):
+def _chunks(draws, rotation, sampler, hyp_chunk, n_chunks_bound,
+            max_iterations, confidence, thr2, n, count, n_valid, est_cap, p,
+            q, src_mask, feat_t, pq_norm):
     """Chunks of ``hyp_chunk`` hypotheses until one exceeds ``confidence``
-    or the budget is spent: (best fitness, best w16 column). ``rotation``
-    is (draws, the plane table, ids a chunk consumes) for the rotation
-    sampler, None for ``sample``'s gather draws. The only host read is
-    the exit flag, once a chunk; on the card the rotation route replays
-    one CUDA graph a chunk (:data:`CHUNK_GRAPH`)."""
+    or the budget is spent: (best fitness, best w16 column). ``sampler``
+    is (the plane table, ids a chunk consumes) when ``rotation``, else
+    (perm, pq_packed) for the gather sampler. The only host read is the
+    exit flag, once a chunk; on the card either route replays one CUDA
+    graph a chunk (:data:`CHUNK_GRAPH`)."""
     device = p.device
     use_est = n >= 2 * est_cap
     k_fin = min(32, hyp_chunk)
@@ -791,21 +892,25 @@ def _chunks(sample, rotation, hyp_chunk, n_chunks_bound, max_iterations,
         n_valid_e = max(float(m_e.sum()), 1.0)
     inputs["n_valid"] = torch.tensor([n_valid_e, n_valid],
                                      dtype=torch.float32, device=device)
-    use_graph = (rotation is not None and device.type == "cuda"
-                 and CHUNK_GRAPH)
-    if rotation is not None:
-        draws, pq2p, cons = rotation
+    use_graph = device.type == "cuda" and CHUNK_GRAPH
+    if rotation:
+        pq2p, cons = sampler
         inputs["pq2p"] = pq2p
         n_ep = -(-hyp_chunk // (pq2p.shape[1] // 2))
-        inputs["params"] = torch.empty(3 + 3 * n_ep, dtype=torch.int32,
-                                       device=device)
+        n_params = 3 + 3 * n_ep
+    else:
+        inputs["perm"], inputs["pq_packed"] = sampler
+        n_params = 2 + 3 * hyp_chunk
+    inputs["params"] = torch.empty(n_params, dtype=torch.int32,
+                                   device=device)
 
     def make():
-        return _ChunkBody(hyp_chunk, use_est, k_fin, thr2, confidence,
-                          device)
+        return _ChunkBody(rotation, hyp_chunk, use_est, k_fin, thr2,
+                          confidence, device)
 
     if use_graph:
-        key = (device, hyp_chunk, use_est, k_fin, thr2, confidence,
+        key = (device, rotation, hyp_chunk, use_est, k_fin, thr2,
+               confidence,
                *((k, tuple(v.shape)) for k, v in sorted(inputs.items())))
         body = _graph_body(key, make)
         body.lock.acquire()
@@ -823,21 +928,26 @@ def _chunks(sample, rotation, hyp_chunk, n_chunks_bound, max_iterations,
         # every rotation triple).
         while c == 0 or (
             c < n_chunks_bound and fid < max_iterations and not done
-            and (count >= 3 or rotation is None)
+            and (count >= 3 or not rotation)
         ):
-            if rotation is None:
-                w16t, t_norm, disabled, n_cons = sample(c, fid, hyp_chunk)
-                body.step(w16t, t_norm, disabled)
-            else:
+            if rotation:
                 prm = epoch_params(lambda e: draws(c, e), n_ep, fid, count,
                                    max_iterations)
                 n_cons = cons
-                if use_graph:
-                    body.replay(prm)
-                else:
-                    body.inputs["params"] = torch.tensor(
-                        prm, dtype=torch.int32).to(device)
-                    body.rotation_step()
+            else:
+                # Pinned when copied straight to the card; a replay
+                # copies it into the body's own pinned buffer.
+                prm = gather_params(
+                    draws.triples(c, hyp_chunk, count), fid, max_iterations,
+                    sampler[0].shape[0],
+                    pin=device.type == "cuda" and not use_graph)
+                n_cons = hyp_chunk
+            if use_graph:
+                body.replay(prm)
+            else:
+                body.inputs["params"] = torch.as_tensor(
+                    prm, dtype=torch.int32).to(device, non_blocking=True)
+                body.chunk_step()
             done = bool(body.any_ex)  # the chunk's one device→host read
             fid += n_cons
             c += 1

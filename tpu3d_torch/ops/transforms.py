@@ -7,7 +7,9 @@ Counterpart of ``tpu3d/ops/transforms.py`` (``make_transform``,
 ``ops/ransac.py`` ``qcp3_w16``). Plane functions take tuples of equally
 shaped tensors (one per coordinate or matrix entry) and do elementwise
 math only, in the same operation order as the JAX package so results
-agree to rounding.
+agree to rounding. ``kabsch_quat`` rounds each operation once on either
+device (1/√x as :func:`rsqrt_div`, divisions by a device scalar), so it
+is K11's plain version (``ops/ransac.py`` ``gather_hypotheses``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,16 @@ from __future__ import annotations
 import numpy as np
 import scipy.linalg
 import torch
+
+from tpu3d_torch.ops.normals import sqrt_rn
+
+
+def rsqrt_div(x: torch.Tensor) -> torch.Tensor:
+    """1/√x as a square root and a division, each rounded once
+    (``__fdiv_rn(1, __fsqrt_rn(x))``): what ``torch.rsqrt`` computes on
+    the CPU, bit for bit, on either device (on the card ``torch.rsqrt``
+    is the approximate ``rsqrtf``)."""
+    return 1.0 / sqrt_rn(x)
 
 
 def kabsch_from_cross_cov(sw, sp, sq, H) -> tuple[np.ndarray, np.ndarray]:
@@ -172,7 +184,9 @@ def _qcp_quat_planes(
                  + m12 * m12 + m13 * m13 + m23 * m23)
     )
     c2 = -0.5 * tr2
-    c1 = -tr3 / 3.0
+    # A device scalar: PyTorch's CUDA division by a Python number
+    # multiplies by its reciprocal, a second rounding.
+    c1 = -tr3 / e0.new_tensor(3.0)
     c0 = -0.25 * (tr4 + c2 * tr2)
 
     lam = e0  # λ_max ≤ E0: Newton from above converges monotonically
@@ -217,7 +231,7 @@ def _qcp_quat_planes(
                 torch.where(take, cand[k][i], best_col[i]) for i in range(4)
             ]
             best_norm = torch.where(take, norms[k], best_norm)
-        inv = torch.rsqrt(torch.clamp_min(best_norm, 1e-60))
+        inv = rsqrt_div(torch.clamp_min(best_norm, 1e-60))
         return [c * inv for c in best_col]
 
     v = _adj_best_col(lam)
@@ -236,7 +250,7 @@ def _qcp_quat_planes(
     v0, v1, v2, v3 = v
     nrm = v0 * v0 + v1 * v1 + v2 * v2 + v3 * v3
     ok = torch.isfinite(nrm) & (nrm > 1e-12)
-    inv = torch.rsqrt(torch.where(ok, nrm, 1.0))
+    inv = rsqrt_div(torch.where(ok, nrm, 1.0))
     one = torch.ones_like(v0)
     zero = torch.zeros_like(v0)
     return (
