@@ -1306,7 +1306,9 @@ def device_profile(torch, fn, top=10):
 
     Only the device's own rows count (kernels, copies, sets): a host op's
     row carries the device time of the kernels it launched too, so a sum
-    over every row counts each kernel twice (the log line gives both)."""
+    over every row counts each kernel twice (the log line gives both). A
+    host range (the program's ``tpu3d:`` spans) shows on the device's
+    timeline as a user annotation as long as the range: not a device row."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1315,6 +1317,9 @@ def device_profile(torch, fn, top=10):
         torch.cuda.synchronize()
     rows, every_row = [], 0.0
     for ev in prof.key_averages():
+        if (getattr(ev, "is_user_annotation", False)
+                or ev.key.startswith("tpu3d:")):
+            continue
         ms = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
         every_row += ms

@@ -64,6 +64,8 @@ SIGNATURES = {
 # their first kernel together.
 _BUILD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+# Every wrapper count_launch has counted, in first-launch order.
+_COUNTED: dict = {}
 
 
 def _sources() -> list[Path]:
@@ -162,3 +164,10 @@ def count_launch(wrapper, k: int = 1) -> None:
     prepare threads launch kernels at once, so the count is locked."""
     with _COUNT_LOCK:
         wrapper.launches += k
+        _COUNTED.setdefault(id(wrapper), wrapper)
+
+
+def counted() -> list:
+    """The kernel wrappers that have counted a launch."""
+    with _COUNT_LOCK:
+        return list(_COUNTED.values())

@@ -52,6 +52,7 @@ from tpu3d_torch.ops.slab2 import (
     build_slab2_aligned,
 )
 from tpu3d_torch.types import FPFHFeatures, PointCloud
+from tpu3d_torch.utils.profiling import span, spanned
 
 
 def _f32(x) -> float:
@@ -243,6 +244,7 @@ def _pallas_prepare(cloud: PointCloud, r: float, r2: float, block: int,
     )
 
 
+@spanned("prepare.sparse")
 def fused_prepare_sparse(
     cloud: PointCloud,
     radius,
@@ -260,9 +262,12 @@ def fused_prepare_sparse(
     del sub
     r = _f32(radius)
     r2 = float(np.float32(r) * np.float32(r))
-    return _pallas_prepare(cloud, r, r2, block, nq=max(1, corr_cap // block))
+    with span("prepare.fused"):
+        return _pallas_prepare(cloud, r, r2, block,
+                               nq=max(1, corr_cap // block))
 
 
+@spanned("prepare.fused")
 def fused_prepare_features(
     cloud: PointCloud,
     radius,

@@ -33,6 +33,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler
 
 from tpu3d_torch.ops.grid import build_grid, grid_top1
 from tpu3d_torch.ops.icp_stats import icp_matches, icp_p2plane_stats
@@ -46,6 +47,14 @@ from tpu3d_torch.ops.transforms import (
     transform_points,
 )
 from tpu3d_torch.types import PointCloud, RegistrationResult
+from tpu3d_torch.utils.profiling import (
+    OFF,
+    Span,
+    count,
+    host_read,
+    span,
+    spanned,
+)
 
 # Query rows per K7 block (LANES CUDA threads each). 64 keeps windows
 # narrow and gives 128 blocks at the 8,192-row bucket.
@@ -132,40 +141,63 @@ def icp_loop(
     the reference's semantics: stop when |Δrmse| < 1e-6 (after the first
     iteration), break before updating when n_corr < 3, keep the last finite
     pose. Reports the post-update pose with the pre-update fitness/rmse, as
-    the reference does. ``stats_fn`` takes the pose on the host."""
+    the reference does. ``stats_fn`` takes the pose on the host. Counts
+    ``icp.runs``, ``icp.iterations`` (the passes of ``stats_fn``) and
+    ``icp.stop.<reason>``: converged, few_corr, nonfinite or
+    max_iterations."""
+    # Spans each iteration: the flag is read once, and nothing is built
+    # while it is off.
+    on = profiler._is_profiler_enabled
     device = initial_transform.device
-    T = initial_transform.detach().to("cpu", torch.float32)
+    T = host_read("icp.initial_pose", initial_transform.detach(), _host_pose)
     fitness = np.float32(0.0)
     rmse = np.float32(0.0)
     n_valid = np.float32(n_valid)
+    it, stop = -1, "max_iterations"
     for it in range(max_iterations):
-        # The iteration's one device→host sync.
-        host = stats_fn(T).vec.cpu().numpy()
-        n_corr, sum_d2 = np.float32(host[-2]), np.float32(host[-1])
-        if n_corr < 3.0:
-            break  # before updating anything
-        if point_to_plane:
-            x = torch.from_numpy(_solve_spd6(host[:36].reshape(6, 6),
-                                             -host[36:42]))
-            delta = make_transform(euler_xyz_to_matrix(x[:3]), x[3:])
-        else:
-            R, t = kabsch_from_cross_cov(host[0], host[1:4], host[4:7],
-                                         host[7:16].reshape(3, 3))
-            delta = make_transform(torch.from_numpy(R), torch.from_numpy(t))
-        new_T = delta @ T
-        new_rmse = np.sqrt(sum_d2 / np.maximum(n_corr, np.float32(1.0)))
-        converged = it > 0 and abs(rmse - new_rmse) < np.float32(1e-6)
-        fitness, rmse = n_corr / n_valid, new_rmse
-        if not bool(torch.isfinite(new_T).all()):
-            break
-        T = new_T
-        if converged:
-            break
+        with Span("icp.iteration") if on else OFF:
+            with Span("icp.stats") if on else OFF:
+                # The iteration's one device→host sync.
+                host = host_read("icp.stats", stats_fn(T).vec).numpy()
+            n_corr, sum_d2 = np.float32(host[-2]), np.float32(host[-1])
+            if n_corr < 3.0:
+                stop = "few_corr"
+                break  # before updating anything
+            with Span("icp.solve") if on else OFF:
+                if point_to_plane:
+                    x = torch.from_numpy(_solve_spd6(host[:36].reshape(6, 6),
+                                                     -host[36:42]))
+                    delta = make_transform(euler_xyz_to_matrix(x[:3]), x[3:])
+                else:
+                    R, t = kabsch_from_cross_cov(host[0], host[1:4],
+                                                 host[4:7],
+                                                 host[7:16].reshape(3, 3))
+                    delta = make_transform(torch.from_numpy(R),
+                                           torch.from_numpy(t))
+                new_T = delta @ T
+            new_rmse = np.sqrt(sum_d2 / np.maximum(n_corr, np.float32(1.0)))
+            converged = it > 0 and abs(rmse - new_rmse) < np.float32(1e-6)
+            fitness, rmse = n_corr / n_valid, new_rmse
+            if not bool(torch.isfinite(new_T).all()):
+                stop = "nonfinite"
+                break
+            T = new_T
+            if converged:
+                stop = "converged"
+                break
+    count("icp.runs")
+    count("icp.iterations", it + 1)
+    count("icp.stop." + stop)
     return RegistrationResult(
         transformation=T.to(device),
         fitness=torch.tensor(fitness, dtype=torch.float32, device=device),
         rmse=torch.tensor(rmse, dtype=torch.float32, device=device),
     )
+
+
+def _host_pose(T: torch.Tensor) -> torch.Tensor:
+    """A pose as the host's float32 copy (the loop keeps it there)."""
+    return T.to("cpu", torch.float32)
 
 
 def p2p_stats(P, q, keep, d2) -> IcpStats:
@@ -294,6 +326,7 @@ def _full_source_stats(index, src_pts, smask, T, thr,
                      point_to_plane=point_to_plane)
 
 
+@spanned("icp")
 def icp_refine(
     source: PointCloud,
     target: PointCloud,
@@ -348,48 +381,55 @@ def icp_refine(
         stride = decimation_stride(src_pts.shape[0], src_cap)
         src_pts = src_pts[: stride * src_cap : stride]
         smask = smask[: stride * src_cap : stride]
-    n_valid = max(float(smask.sum()), 1.0)
+    n_valid = max(host_read("icp.n_valid", smask.sum(), float), 1.0)
     T0 = initial_transform.to(torch.float32)
-    if nn_mode == "slab":
-        index = target_index if target_index is not None else (
-            build_icp_target(target))
-        x0 = transform_points(T0, src_pts)[:, 0]
-        _, order = torch.sort(torch.where(smask, x0, 3e4), stable=True)
-        stats = SlabStats(index, src_pts[order], smask[order],
-                          distance_threshold, point_to_plane=use_p2l)
-    else:
-        if nn_mode == "grid":
-            grid = build_grid(target.points, target.mask, distance_threshold)
-
-            def corr_fn(P):
-                return grid_top1(grid, P, cell_capacity=cell_capacity)
+    with span("icp.target"):
+        if nn_mode == "slab":
+            index = target_index if target_index is not None else (
+                build_icp_target(target))
+            x0 = transform_points(T0, src_pts)[:, 0]
+            _, order = torch.sort(torch.where(smask, x0, 3e4), stable=True)
+            stats = SlabStats(index, src_pts[order], smask[order],
+                              distance_threshold, point_to_plane=use_p2l)
         else:
+            if nn_mode == "grid":
+                grid = build_grid(target.points, target.mask,
+                                  distance_threshold)
 
-            def corr_fn(P):
-                return nearest_neighbor(P, target.points, target.mask)
-        stats = gathered_stats_fn(corr_fn, src_pts, smask, target.points,
-                                  target.normals, distance_threshold, use_p2l)
+                def corr_fn(P):
+                    return grid_top1(grid, P, cell_capacity=cell_capacity)
+            else:
+
+                def corr_fn(P):
+                    return nearest_neighbor(P, target.points, target.mask)
+            stats = gathered_stats_fn(corr_fn, src_pts, smask,
+                                      target.points, target.normals,
+                                      distance_threshold, use_p2l)
     res = icp_loop(stats, n_valid, T0, max_iterations, use_p2l)
     if not use_sub:
         return res
 
-    n_valid_full = max(float(smask_full.sum()), 1.0)
+    n_valid_full = max(host_read("icp.n_valid", smask_full.sum(), float), 1.0)
     if final_metrics == "auto":
-        res = _metrics(stats(res.transformation), n_valid,
-                       res.transformation)
+        res = _metrics(stats(host_read("icp.pose", res.transformation,
+                                       _host_pose)),
+                       n_valid, res.transformation)
     elif final_metrics == "exact":
         full = _full_source_stats(index, src_full, smask_full,
                                   res.transformation, distance_threshold,
                                   use_p2l)
-        res = _metrics(full(res.transformation), n_valid_full,
-                       res.transformation)
+        res = _metrics(full(host_read("icp.pose", res.transformation,
+                                      _host_pose)),
+                       n_valid_full, res.transformation)
     if (polish == "auto" and polish_iters > 0
-            and float(res.fitness) < polish_threshold):
+            and host_read("icp.fitness", res.fitness, float)
+            < polish_threshold):
         full = _full_source_stats(index, src_full, smask_full,
                                   res.transformation, distance_threshold,
                                   use_p2l)
         r2 = icp_loop(full, n_valid_full, res.transformation, polish_iters,
                       use_p2l)
-        res = _metrics(full(r2.transformation), n_valid_full,
-                       r2.transformation)
+        res = _metrics(full(host_read("icp.pose", r2.transformation,
+                                      _host_pose)),
+                       n_valid_full, r2.transformation)
     return res

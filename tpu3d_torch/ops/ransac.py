@@ -40,6 +40,8 @@ from tpu3d_torch.ops.nn import descriptor_targets, nearest_neighbor
 from tpu3d_torch.ops.ransac_score import score_hypotheses
 from tpu3d_torch.ops.transforms import kabsch_quat, make_transform
 from tpu3d_torch.types import FPFHFeatures, PointCloud, RegistrationResult
+from tpu3d_torch.utils.profiling import host_read, span, spanned
+from tpu3d_torch.utils.profiling import count as count_event
 
 
 class Draws(Protocol):
@@ -550,6 +552,7 @@ def feature_correspondences(
     return idx
 
 
+@spanned("ransac")
 def ransac_registration(
     source: PointCloud,
     target: PointCloud,
@@ -625,24 +628,27 @@ def ransac_registration(
     else:
         use_rotation = False
 
-    n_valid = max(float(src_mask.sum()), 1.0)
+    n_valid = max(host_read("ransac.n_valid", src_mask.sum(), float), 1.0)
     count = max(int(n_valid), 1)
-    corr = feature_correspondences(
-        FPFHFeatures(src_desc, src_mask), target_features
-    )
+    with span("ransac.correspondences"):
+        corr = feature_correspondences(
+            FPFHFeatures(src_desc, src_mask), target_features
+        )
     p = src_pts.to(torch.float32)
     q = target.points[corr.long()].to(torch.float32)
     feat_t, pq_norm = build_scoring_factors(p, q, src_mask)
     pq_packed = torch.cat([p, q], dim=1)
-    if use_rotation:
-        pq2p = build_rotation_table(pq_packed, src_mask, count)
-        # Every chunk consumes the same number of iterations at the cloud's
-        # valid fraction: bound the loop by the chunks the budget needs.
-        cons = (hyp_chunk // n) * count + min(hyp_chunk % n, count)
-        n_chunks_bound = (max_iterations + cons - 1) // max(cons, 1)
-    else:
-        perm = torch.sort((~src_mask).to(torch.int8), stable=True)[1]
-        n_chunks_bound = -(-max_iterations // hyp_chunk)
+    with span("ransac.sampler"):
+        if use_rotation:
+            pq2p = build_rotation_table(pq_packed, src_mask, count)
+            # Every chunk consumes the same number of iterations at the
+            # cloud's valid fraction: bound the loop by the chunks the
+            # budget needs.
+            cons = (hyp_chunk // n) * count + min(hyp_chunk % n, count)
+            n_chunks_bound = (max_iterations + cons - 1) // max(cons, 1)
+        else:
+            perm = torch.sort((~src_mask).to(torch.int8), stable=True)[1]
+            n_chunks_bound = -(-max_iterations // hyp_chunk)
 
     def one_shot_sample():
         """(w16t, t_norm, disabled) of the ``h_total`` gather-sampled
@@ -651,21 +657,28 @@ def ransac_registration(
                             pq_packed, max_iterations)
 
     if two_stage:
-        rows = perm[draws.rows(SUB_N, count).to(perm.device)]
-        bf, bw = _two_stage(one_shot_sample(), feat_t, pq_norm, rows,
-                            thr2, n_valid, confidence, finalists)
+        with span("ransac.two_stage"):
+            rows = perm[draws.rows(SUB_N, count).to(perm.device)]
+            bf, bw = _two_stage(one_shot_sample(), feat_t, pq_norm, rows,
+                                thr2, n_valid, confidence, finalists)
+        count_event("ransac.runs.two_stage")
+        count_event("ransac.hypotheses", h_total)
     elif not use_chunked:
-        bf, bw = _one_shot(one_shot_sample(), feat_t, pq_norm, thr2,
-                           n_valid, confidence)
+        with span("ransac.one_shot"):
+            bf, bw = _one_shot(one_shot_sample(), feat_t, pq_norm, thr2,
+                               n_valid, confidence)
+        count_event("ransac.runs.one_shot")
+        count_event("ransac.hypotheses", h_total)
     else:
         sampler = ((pq2p, cons) if use_rotation else (perm, pq_packed))
         bf, bw = _chunks(draws, use_rotation, sampler, hyp_chunk,
                          n_chunks_bound,
                          max_iterations, confidence, thr2, n, count, n_valid,
                          est_cap, p, q, src_mask, feat_t, pq_norm)
-    best_R = bw[6:15].reshape(3, 3)
-    best_t = bw[3:6]
-    return _rescore(p, q, src_mask, best_R, best_t, bf, thr2, n_valid)
+    with span("ransac.rescore"):
+        best_R = bw[6:15].reshape(3, 3)
+        best_t = bw[3:6]
+        return _rescore(p, q, src_mask, best_R, best_t, bf, thr2, n_valid)
 
 
 def _one_shot(sampled, feat_t, pq_norm, thr2, n_valid, confidence):
@@ -841,6 +854,7 @@ class _ChunkBody:
             build.count_launch(wrapper, k)
 
     def _capture(self):
+        count_event("ransac.graph_captures")
         dev = self.bf.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -879,7 +893,9 @@ def _chunks(draws, rotation, sampler, hyp_chunk, n_chunks_bound,
     is (the plane table, ids a chunk consumes) when ``rotation``, else
     (perm, pq_packed) for the gather sampler. The only host read is the
     exit flag, once a chunk; on the card either route replays one CUDA
-    graph a chunk (:data:`CHUNK_GRAPH`)."""
+    graph a chunk (:data:`CHUNK_GRAPH`). Counts the run by its sampler,
+    its chunks, the iterations they consumed and whether it stopped on
+    ``confidence`` before the budget and the bound."""
     device = p.device
     use_est = n >= 2 * est_cap
     k_fin = min(32, hyp_chunk)
@@ -889,7 +905,7 @@ def _chunks(draws, rotation, sampler, hyp_chunk, n_chunks_bound,
         m_e = strided_rows(src_mask, est_cap)
         inputs["feat_e"], inputs["pq_e"] = build_scoring_factors(
             strided_rows(p, est_cap), strided_rows(q, est_cap), m_e)
-        n_valid_e = max(float(m_e.sum()), 1.0)
+        n_valid_e = max(host_read("ransac.n_valid", m_e.sum(), float), 1.0)
     inputs["n_valid"] = torch.tensor([n_valid_e, n_valid],
                                      dtype=torch.float32, device=device)
     use_graph = device.type == "cuda" and CHUNK_GRAPH
@@ -930,27 +946,35 @@ def _chunks(draws, rotation, sampler, hyp_chunk, n_chunks_bound,
             c < n_chunks_bound and fid < max_iterations and not done
             and (count >= 3 or not rotation)
         ):
-            if rotation:
-                prm = epoch_params(lambda e: draws(c, e), n_ep, fid, count,
-                                   max_iterations)
-                n_cons = cons
-            else:
-                # Pinned when copied straight to the card; a replay
-                # copies it into the body's own pinned buffer.
-                prm = gather_params(
-                    draws.triples(c, hyp_chunk, count), fid, max_iterations,
-                    sampler[0].shape[0],
-                    pin=device.type == "cuda" and not use_graph)
-                n_cons = hyp_chunk
-            if use_graph:
-                body.replay(prm)
-            else:
-                body.inputs["params"] = torch.as_tensor(
-                    prm, dtype=torch.int32).to(device, non_blocking=True)
-                body.chunk_step()
-            done = bool(body.any_ex)  # the chunk's one device→host read
+            with span("ransac.chunk"):
+                if rotation:
+                    prm = epoch_params(lambda e: draws(c, e), n_ep, fid,
+                                       count, max_iterations)
+                    n_cons = cons
+                else:
+                    # Pinned when copied straight to the card; a replay
+                    # copies it into the body's own pinned buffer.
+                    prm = gather_params(
+                        draws.triples(c, hyp_chunk, count), fid,
+                        max_iterations, sampler[0].shape[0],
+                        pin=device.type == "cuda" and not use_graph)
+                    n_cons = hyp_chunk
+                if use_graph:
+                    body.replay(prm)
+                else:
+                    body.inputs["params"] = torch.as_tensor(
+                        prm, dtype=torch.int32).to(device, non_blocking=True)
+                    body.chunk_step()
+                # The chunk's one device→host read.
+                done = host_read("ransac.exit_flag", body.any_ex, bool)
             fid += n_cons
             c += 1
+        count_event("ransac.runs.chunked."
+                    + ("rotation" if rotation else "gather"))
+        count_event("ransac.chunks", c)
+        count_event("ransac.hypotheses", fid)
+        if done and c < n_chunks_bound and fid < max_iterations:
+            count_event("ransac.early_exits")
         return body.bf.clone(), body.bw.clone()
     finally:
         if use_graph:

@@ -58,6 +58,8 @@ from tpu3d_torch.registration import (
     two_stage_opt,
 )
 from tpu3d_torch.types import PointCloud, RegistrationResult
+from tpu3d_torch.utils.profiling import handoff, host_read, span, spanned
+from tpu3d_torch.utils.profiling import count as count_event
 from tpu3d_torch.viz.viewer import SceneViewer
 
 
@@ -107,6 +109,7 @@ class Pipeline:
             prep[0], prep[1], ref_cloud, ref_features, instance_id, t0
         )
 
+    @spanned("pipeline.prepare_instance")
     def prepare_instance(
         self, mask, depth_raw, rgb, K, instance_id
     ) -> Optional[tuple]:
@@ -138,7 +141,8 @@ class Pipeline:
                     cfg.depth.bilateral_sigma_spatial,
                     cfg.depth.bilateral_sigma_range,
                 )
-            if int((depth_m > 0).sum()) == 0:
+            if host_read("pipeline.depth_count", (depth_m > 0).sum(),
+                         int) == 0:
                 print(f"Instance {instance_id}: empty depth after masking")
                 return None
 
@@ -149,7 +153,7 @@ class Pipeline:
                 torch.from_numpy(np.asarray(K, np.float32)),
                 cfg.depth.clipping_max,
             )
-            n_pts = cloud.count()
+            n_pts = host_read("pipeline.count", cloud.mask.sum(), int)
             if n_pts == 0:
                 print(f"Instance {instance_id}: empty point cloud")
                 return None
@@ -178,6 +182,7 @@ class Pipeline:
             self._degraded += 1
             return None
 
+    @spanned("pipeline.instance")
     def _register_instance_inner(
         self, source, source_features, ref_cloud, ref_features, instance_id,
         t0,
@@ -200,10 +205,9 @@ class Pipeline:
                                              t0)
             coarse = self._ransac(ransac_src, ref_cloud, ransac_feat,
                                   ref_features, corr_mode)
-            print(
-                f"RANSAC result: fitness={float(coarse.fitness):.4f},"
-                f" RMSE={float(coarse.rmse):.6f}"
-            )
+            c_fit = host_read("pipeline.fitness", coarse.fitness, float)
+            c_rmse = host_read("pipeline.rmse", coarse.rmse, float)
+            print(f"RANSAC result: fitness={c_fit:.4f}, RMSE={c_rmse:.6f}")
             icp_threshold = (
                 cfg.registration.voxel_size
                 * cfg.registration.icp_distance_factor
@@ -212,7 +216,8 @@ class Pipeline:
                 refined = self._icp_accel(
                     source, ref_cloud, coarse.transformation, icp_threshold
                 )
-                float(refined.fitness)  # sync: device faults surface here
+                # sync: device faults surface here
+                host_read("pipeline.fitness", refined.fitness, float)
             except Exception as icp_err:
                 # A failed ICP is retried only where the state already lies
                 # on the CPU, the analog of the reference's GPU-ICP
@@ -260,10 +265,13 @@ class Pipeline:
             self._mesh, corr_mode=corr_mode, icp_source=source,
             draws=self._draws)
         self._sharded_registrations += 1
-        fitness = float(refined.fitness)  # sync: faults surface here
+        # sync: faults surface here
+        fitness = host_read("pipeline.fitness", refined.fitness, float)
+        c_fit = host_read("pipeline.fitness", coarse.fitness, float)
+        c_rmse = host_read("pipeline.rmse", coarse.rmse, float)
         print(
-            f"RANSAC result: fitness={float(coarse.fitness):.4f},"
-            f" RMSE={float(coarse.rmse):.6f} [sharded x"
+            f"RANSAC result: fitness={c_fit:.4f},"
+            f" RMSE={c_rmse:.6f} [sharded x"
             f"{self._mesh.devices.size}]"
         )
         if (source_features is None
@@ -273,13 +281,16 @@ class Pipeline:
                 f" {fitness:.4f} below threshold — escalating through the"
                 " full-prepare arm"
             )
-            src_full, src_feat, _ = self._prepare_sharded(source)
-            refined2, coarse2 = register_prepared_sharded(
-                src_full, ref_cloud, src_feat, ref_features, cfg,
-                self._mesh, corr_mode=cfg.corr_mode, icp_source=source,
-                draws=self._draws)
-            if float(refined2.fitness) > fitness:
-                refined, coarse = refined2, coarse2
+            with span("registration.escalate"):
+                src_full, src_feat, _ = self._prepare_sharded(source)
+                refined2, coarse2 = register_prepared_sharded(
+                    src_full, ref_cloud, src_feat, ref_features, cfg,
+                    self._mesh, corr_mode=cfg.corr_mode, icp_source=source,
+                    draws=self._draws)
+                count_event("registration.escalations")
+                if host_read("pipeline.fitness", refined2.fitness,
+                             float) > fitness:
+                    refined, coarse = refined2, coarse2
         return refined, coarse
 
     def _fpfh_radius(self) -> float:
@@ -308,7 +319,7 @@ class Pipeline:
         fine stages through the full-prepare arm and keep the better
         result. ``refined``/``coarse`` are the sparse arm's result, from
         the per-instance or the batched path."""
-        fitness = float(refined.fitness)
+        fitness = host_read("pipeline.fitness", refined.fitness, float)
         if fitness >= self._sparse_escalate_threshold():
             return refined, coarse
         print(
@@ -316,15 +327,18 @@ class Pipeline:
             " threshold — escalating through the full-prepare arm"
         )
         cfg = self.config.registration
-        src_full, src_feat = prepare_features(source, cfg, "fused")
-        coarse2 = self._ransac(src_full, ref_cloud, src_feat, ref_features,
-                               cfg.corr_mode)
-        refined2 = self._icp_accel(
-            src_full, ref_cloud, coarse2.transformation,
-            cfg.voxel_size * cfg.icp_distance_factor,
-        )
-        if float(refined2.fitness) > fitness:
-            return refined2, coarse2
+        with span("registration.escalate"):
+            src_full, src_feat = prepare_features(source, cfg, "fused")
+            coarse2 = self._ransac(src_full, ref_cloud, src_feat,
+                                   ref_features, cfg.corr_mode)
+            refined2 = self._icp_accel(
+                src_full, ref_cloud, coarse2.transformation,
+                cfg.voxel_size * cfg.icp_distance_factor,
+            )
+            count_event("registration.escalations")
+            if host_read("pipeline.fitness", refined2.fitness,
+                         float) > fitness:
+                return refined2, coarse2
         return refined, coarse
 
     def _finish_instance(
@@ -334,23 +348,22 @@ class Pipeline:
         (pipeline.cpp:131-134 — warn but still use the pose), camera→world
         pose and the per-instance record."""
         cfg = self.config
-        fitness = float(refined.fitness)
-        print(
-            f"ICP result: fitness={fitness:.4f},"
-            f" RMSE={float(refined.rmse):.6f}"
-        )
+        fitness = host_read("pipeline.fitness", refined.fitness, float)
+        rmse = host_read("pipeline.rmse", refined.rmse, float)
+        print(f"ICP result: fitness={fitness:.4f}, RMSE={rmse:.6f}")
         if fitness < cfg.registration.min_fitness:
             print(f"Instance {instance_id}: low fitness {fitness:.4f}")
 
-        T_camera_object = (
-            invert_transform(refined.transformation).cpu().numpy())
+        T_camera_object = host_read(
+            "pipeline.pose", invert_transform(refined.transformation)).numpy()
         T_world_object = cfg.camera_extrinsics @ T_camera_object
         self.instance_results.append(
             {
                 "instance_id": instance_id,
                 "fitness": fitness,
-                "rmse": float(refined.rmse),
-                "coarse_fitness": float(coarse.fitness),
+                "rmse": host_read("pipeline.rmse", refined.rmse, float),
+                "coarse_fitness": host_read("pipeline.fitness",
+                                            coarse.fitness, float),
                 "T_world_object": T_world_object,
             }
         )
@@ -362,6 +375,7 @@ class Pipeline:
         )
         return T_world_object
 
+    @spanned("pipeline.register")
     def _register_instances(
         self, prepared, ref_cloud, ref_features
     ) -> List[Optional[np.ndarray]]:
@@ -415,7 +429,7 @@ class Pipeline:
         t0 = time.perf_counter()
         out = [
             self._register_instance_inner(p[0], p[1], ref_cloud, ref_features,
-                                          instance_id, t0)
+                                          instance_id, time.perf_counter())
             for p, instance_id in zip(preps, ids)
         ]
         ms = (time.perf_counter() - t0) * 1000.0
@@ -448,6 +462,7 @@ class Pipeline:
         return self._icp(source, target, init_T, threshold)
 
     # ------------------------------------------------------------------- run
+    @spanned("pipeline.run", root=True)
     def run(self) -> List[np.ndarray]:
         t_start = time.perf_counter()
         print("\n=== Starting Pipeline ===")
@@ -459,55 +474,60 @@ class Pipeline:
         depth: Optional[np.ndarray] = None
         K = np.eye(3, dtype=np.float32)
 
-        if cfg.use_camera:
-            print("\n[1/5] Camera capture (RealSense)...")
-            from tpu3d_torch.io.camera import RealSenseCamera
+        with span("io.read_frame"):
+            if cfg.use_camera:
+                print("\n[1/5] Camera capture (RealSense)...")
+                from tpu3d_torch.io.camera import RealSenseCamera
 
-            camera = RealSenseCamera(cfg.camera.width, cfg.camera.height)
-            frame = camera.capture() if camera.connect() else None
-            if frame is None:
-                print("Camera capture failed.")
-                return []
-            rgb, depth = frame
-            K = camera.get_intrinsics()
-            # The live capture's depth unit wins over the config scale.
-            if getattr(camera, "depth_scale", None):
-                cfg.depth.scale_to_meters = 1.0 / camera.depth_scale
-            camera.disconnect()
-        else:
-            print("\n[1/5] Using dummy data...")
-            if cfg.dummy_rgb_path and cfg.dummy_depth_path:
-                try:
-                    import cv2
+                camera = RealSenseCamera(cfg.camera.width,
+                                         cfg.camera.height)
+                frame = camera.capture() if camera.connect() else None
+                if frame is None:
+                    print("Camera capture failed.")
+                    return []
+                rgb, depth = frame
+                K = camera.get_intrinsics()
+                # The live capture's depth unit wins over the config scale.
+                if getattr(camera, "depth_scale", None):
+                    cfg.depth.scale_to_meters = 1.0 / camera.depth_scale
+                camera.disconnect()
+            else:
+                print("\n[1/5] Using dummy data...")
+                if cfg.dummy_rgb_path and cfg.dummy_depth_path:
+                    try:
+                        import cv2
 
-                    rgb = cv2.imread(cfg.dummy_rgb_path, cv2.IMREAD_COLOR)
-                    depth = cv2.imread(cfg.dummy_depth_path,
-                                       cv2.IMREAD_UNCHANGED)
-                    K = np.array(
-                        [[900, 0, 640], [0, 900, 360], [0, 0, 1]], np.float32
+                        rgb = cv2.imread(cfg.dummy_rgb_path,
+                                         cv2.IMREAD_COLOR)
+                        depth = cv2.imread(cfg.dummy_depth_path,
+                                           cv2.IMREAD_UNCHANGED)
+                        K = np.array(
+                            [[900, 0, 640], [0, 900, 360], [0, 0, 1]],
+                            np.float32,
+                        )
+                    except Exception:
+                        rgb = depth = None
+                if rgb is None or depth is None:
+                    print("Generating procedural test scene...")
+                    rgb, depth, K = generate_scene(
+                        cfg.camera.width, cfg.camera.height,
+                        cfg.depth.scale_to_meters
                     )
-                except Exception:
-                    rgb = depth = None
-            if rgb is None or depth is None:
-                print("Generating procedural test scene...")
-                rgb, depth, K = generate_scene(
-                    cfg.camera.width, cfg.camera.height,
-                    cfg.depth.scale_to_meters
-                )
-            if self._forced_K is not None:
-                K = np.asarray(self._forced_K, np.float32)
+                if self._forced_K is not None:
+                    K = np.asarray(self._forced_K, np.float32)
 
         print("\n[2/5] Segmentation...")
         if not cfg.use_camera and not cfg.segmentation.masks_input_dir:
             print("Generating dummy mask for box...")
             masks = [generate_box_mask(depth.shape[1], depth.shape[0])]
         else:
-            masks = get_masks(
-                rgb,
-                cfg.segmentation.sam_server_url,
-                cfg.segmentation.sam_query,
-                cfg.segmentation.masks_input_dir,
-            )
+            with span("io.get_masks"):
+                masks = get_masks(
+                    rgb,
+                    cfg.segmentation.sam_server_url,
+                    cfg.segmentation.sam_query,
+                    cfg.segmentation.masks_input_dir,
+                )
         if not masks:
             print("No segmentation masks found.")
             return []
@@ -519,23 +539,25 @@ class Pipeline:
             ref_pts, _ = generate_reference_grid()
             ref_raw = PointCloud.from_numpy(ref_pts, device=dev)
         else:
-            pts, cols = load_ply(cfg.reference_model_path)
+            with span("io.load_ply"):
+                pts, cols = load_ply(cfg.reference_model_path)
             if len(pts) == 0:
                 print("Warning: Empty reference model. Registration may fail.")
             ref_raw = PointCloud.from_numpy(pts, colors=cols, device=dev)
 
-        ref_down = downsample_bucketed(
-            ref_raw,
-            cfg.registration,
-            capacity=cfg.registration.max_points or None,
-        )
-        self._neighbor_mode = resolve_neighbor_mode(ref_down.capacity)
-        if self._mesh is not None and self._neighbor_mode == "fused":
-            ref_cloud, ref_features, _ = self._prepare_sharded(ref_down)
-        else:
-            ref_cloud, ref_features = prepare_features(
-                ref_down, cfg.registration, self._neighbor_mode
+        with span("pipeline.reference"):
+            ref_down = downsample_bucketed(
+                ref_raw,
+                cfg.registration,
+                capacity=cfg.registration.max_points or None,
             )
+            self._neighbor_mode = resolve_neighbor_mode(ref_down.capacity)
+            if self._mesh is not None and self._neighbor_mode == "fused":
+                ref_cloud, ref_features, _ = self._prepare_sharded(ref_down)
+            else:
+                ref_cloud, ref_features = prepare_features(
+                    ref_down, cfg.registration, self._neighbor_mode
+                )
         if self._mesh is None:
             # K5's target operand, once per reference model.
             ref_features = with_target_operand(ref_features)
@@ -552,8 +574,10 @@ class Pipeline:
         # Phase 1: per-instance prep fans out over the host pool (parity
         # with the reference's ThreadPool, pipeline.cpp:321-339).
         with ThreadPoolExecutor(max_workers=max(cfg.num_threads, 1)) as pool:
+            # handoff: the prepares' spans carry this run's request.
+            prepare = handoff(self.prepare_instance)
             prep_futures = [
-                pool.submit(self.prepare_instance, masks[i], depth, rgb, K, i)
+                pool.submit(prepare, masks[i], depth, rgb, K, i)
                 for i in range(len(masks))
             ]
             prepared = [f.result() for f in prep_futures]
@@ -571,7 +595,8 @@ class Pipeline:
         proc_ms = (time.perf_counter() - t_proc) * 1000.0
         print(f"\nAll instances processed in {proc_ms:.1f} ms")
 
-        final_waypoints = filter_duplicates(raw_waypoints, 0.1)
+        with span("pipeline.dedup"):
+            final_waypoints = filter_duplicates(raw_waypoints, 0.1)
         self.waypoints = final_waypoints
 
         if self.viewer is not None and final_waypoints:

@@ -48,6 +48,8 @@ from tpu3d_torch.ops.ransac import (
 from tpu3d_torch.ops.slab import build_slab, slab_knn
 from tpu3d_torch.ops.voxel import compact, voxel_downsample
 from tpu3d_torch.types import FPFHFeatures, PointCloud, RegistrationResult
+from tpu3d_torch.utils.profiling import host_read, span, spanned
+from tpu3d_torch.utils.profiling import count as count_event
 
 FUSED_CAPACITY_THRESHOLD = 16384
 
@@ -66,6 +68,7 @@ def resolve_neighbor_mode(*capacities: int) -> str:
     return "fused" if max(capacities) >= FUSED_CAPACITY_THRESHOLD else "auto"
 
 
+@spanned("prepare.downsample")
 def downsample_bucketed(
     cloud: PointCloud,
     config: RegistrationConfig,
@@ -74,7 +77,8 @@ def downsample_bucketed(
     """Voxel downsample, then compact to a power-of-two capacity bucket
     (truncating loudly when an explicit ``capacity`` is too small)."""
     down = voxel_downsample(cloud, config.voxel_size)
-    count = down.count()  # host sync at the stage boundary
+    # The stage boundary's host sync.
+    count = host_read("prepare.count", down.mask.sum(), int)
     if capacity is None:
         capacity = bucket_capacity(max(count, 1))
     elif count > capacity:
@@ -128,6 +132,7 @@ def prepare_cloud(
     return prepare_features(down, config, neighbor_mode)
 
 
+@spanned("prepare.features")
 def prepare_features(
     down: PointCloud,
     config: RegistrationConfig,
@@ -142,9 +147,12 @@ def prepare_features(
         neighbor_mode == "auto" and down.capacity >= FUSED_CAPACITY_THRESHOLD
     ):
         return fused_prepare_features(down, radius)
-    nbrs = surface_neighbors(down, radius, k=100, mode=neighbor_mode)
-    down = estimate_normals(down, k=30, neighbors=nbrs)
-    return down, compute_fpfh(down, radius, neighbors=nbrs)
+    with span("prepare.neighbors"):
+        nbrs = surface_neighbors(down, radius, k=100, mode=neighbor_mode)
+    with span("prepare.normals"):
+        down = estimate_normals(down, k=30, neighbors=nbrs)
+    with span("prepare.fpfh"):
+        return down, compute_fpfh(down, radius, neighbors=nbrs)
 
 
 def prepare_icp_target(
@@ -269,25 +277,32 @@ def sparse_register_escalated(
         voxel * icp_distance_factor, max_iterations=icp_max_iterations,
         point_to_plane=point_to_plane, src_mode=src_mode, src_cap=src_cap,
     )
-    if escalate_below > 0 and float(refined.fitness) < escalate_below:
-        src_full, src_feat = fused_prepare_features(src_down, radius)
-        coarse2 = ransac_registration(
-            src_full, tgt_down, src_feat, tgt_feat, voxel,
-            max_iterations=max_iterations, confidence=confidence, seed=seed,
-            corr_mode="auto", corr_cap=corr_cap, est_cap=est_cap,
-            two_stage=ts, draws=draws,
-        )
-        refined2 = icp_refine(
-            src_full, tgt_down, coarse2.transformation,
-            voxel * icp_distance_factor, max_iterations=icp_max_iterations,
-            point_to_plane=point_to_plane, src_mode=src_mode,
-            src_cap=src_cap,
-        )
-        if float(refined2.fitness) > float(refined.fitness):
-            return refined2, coarse2, True
+    if escalate_below > 0 and host_read(
+            "registration.fitness", refined.fitness, float) < escalate_below:
+        with span("registration.escalate"):
+            src_full, src_feat = fused_prepare_features(src_down, radius)
+            coarse2 = ransac_registration(
+                src_full, tgt_down, src_feat, tgt_feat, voxel,
+                max_iterations=max_iterations, confidence=confidence,
+                seed=seed, corr_mode="auto", corr_cap=corr_cap,
+                est_cap=est_cap, two_stage=ts, draws=draws,
+            )
+            refined2 = icp_refine(
+                src_full, tgt_down, coarse2.transformation,
+                voxel * icp_distance_factor,
+                max_iterations=icp_max_iterations,
+                point_to_plane=point_to_plane, src_mode=src_mode,
+                src_cap=src_cap,
+            )
+            count_event("registration.escalations")
+            if (host_read("registration.fitness", refined2.fitness, float)
+                    > host_read("registration.fitness", refined.fitness,
+                                float)):
+                return refined2, coarse2, True
     return refined, coarse, False
 
 
+@spanned("register_pair", root=True)
 def register_pair(
     source: PointCloud,
     target: PointCloud,
