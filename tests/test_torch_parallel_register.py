@@ -151,6 +151,35 @@ def test_pipeline_parallel_from_config(cpu8):
     assert 0.0 <= pipe.instance_results[0]["fitness"] <= 1.0
 
 
+def test_pipeline_parallel_keeps_the_model(cpu8, tmp_path, monkeypatch):
+    """With a mesh, a second run reuses the model read from its file (one
+    read) and poses it bit for bit as a fresh Pipeline does."""
+    from tpu3d_torch.models.ply import save_ply
+    from tpu3d_torch.models.procedural import generate_reference_grid
+    from tpu3d_torch.pipeline import pipeline as pl
+
+    loads = []
+    load = pl.load_ply
+    monkeypatch.setattr(pl, "load_ply",
+                        lambda path: loads.append(path) or load(path))
+    cfg = _pipeline_cfg()
+    cfg.camera.width = 320
+    cfg.camera.height = 240
+    cfg.registration.voxel_size = 0.005
+    cfg.registration.ransac_max_iterations = 2000
+    cfg.registration.icp_max_iterations = 30
+    cfg.reference_model_path = str(tmp_path / "model.ply")
+    save_ply(cfg.reference_model_path, generate_reference_grid()[0])
+    pipe = pl.Pipeline(cfg, sleep_fn=lambda s: None)
+    runs = [pipe.run(), pipe.run(),
+            pl.Pipeline(cfg, sleep_fn=lambda s: None).run()]
+    assert pipe._mesh is not None and pipe._sharded_registrations == 2
+    assert len(loads) == 2  # the first Pipeline's run and the fresh one's
+    for later in runs[1:]:
+        assert len(later) == len(runs[0]) == 1
+        np.testing.assert_array_equal(later[0], runs[0][0])
+
+
 def test_pipeline_sharded_sparse_escalation(cpu8, capsys):
     import time
 

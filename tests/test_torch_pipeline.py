@@ -10,6 +10,7 @@ only the orchestration contract is compared, as JAX's own test does.
 """
 
 import dataclasses
+import os
 
 import cv2
 import numpy as np
@@ -382,3 +383,154 @@ def test_device_follows_use_gpu(capsys):
     pipe = Pipeline(cfg)
     assert pipe._mesh is None
     assert "only one device is visible" in capsys.readouterr().out
+
+
+# ------------------------------------------- the reference model between runs
+
+def _write_model(path, pts):
+    """The model as an ASCII PLY of fixed-width rows, so that a rewrite with
+    as many points keeps the file's size."""
+    pts = np.asarray(pts, np.float32).reshape(-1, 3)
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n"
+                f"element vertex {len(pts)}\n"
+                "property float x\nproperty float y\nproperty float z\n"
+                "end_header\n")
+        f.write(("%+.6f %+.6f %+.6f\n" * len(pts))
+                % tuple(pts.astype(np.float64).ravel().tolist()))
+
+
+def _counted_loads(monkeypatch):
+    """The paths ``Pipeline.run()`` reads a model from, one per call."""
+    from tpu3d_torch.pipeline import pipeline as pl
+
+    paths = []
+    load = pl.load_ply
+
+    def counted(path):
+        paths.append(path)
+        return load(path)
+
+    monkeypatch.setattr(pl, "load_ply", counted)
+    return paths
+
+
+def _run(pipe, K):
+    """(waypoints, instance_results) of one ``run()``."""
+    pipe._forced_K = K
+    return pipe.run(), pipe.instance_results
+
+
+def _fresh(cfg, K):
+    return _run(Pipeline(cfg, sleep_fn=lambda s: None), K)
+
+
+def _assert_bitwise(a, b):
+    (wa, ra), (wb, rb) = a, b
+    assert len(wa) == len(wb) >= 1 and len(ra) == len(rb) >= 1
+    for x, y in zip(wa, wb):
+        np.testing.assert_array_equal(x, y)
+    for x, y in zip(ra, rb):
+        assert x.keys() == y.keys()
+        for k in x:
+            np.testing.assert_array_equal(x[k], y[k])
+
+
+def _model_config(fx, tmp_path):
+    """The bumpy frame with one 100 px instance and the model at
+    ``tmp_path/ref.ply``, written from the frame's points."""
+    cfg = _port_config(_bumpy_setup(fx))
+    cfg.reference_model_path = str(tmp_path / "ref.ply")
+    _write_model(cfg.reference_model_path, fx["pts"])
+    masks = tmp_path / "masks"
+    masks.mkdir()
+    m = np.zeros(cv2.imread(fx["depth"], cv2.IMREAD_UNCHANGED).shape,
+                 np.uint8)
+    m[20:120, 10:110] = 255
+    cv2.imwrite(str(masks / "mask_0.png"), m)
+    cfg.segmentation.masks_input_dir = str(masks)
+    cfg.segmentation.apply_mask = True
+    return cfg
+
+
+def test_reference_model_kept_between_runs(bumpy, tmp_path, monkeypatch):
+    """A second run on one Pipeline reuses the downsampled model: one read
+    of the file, the model's normals and FPFH prepared from the kept cloud
+    on both runs, and both runs bit for bit equal to a fresh Pipeline's."""
+    from tpu3d_torch.pipeline import pipeline as pl
+
+    loads = _counted_loads(monkeypatch)
+    prepared = []
+    prepare = pl.prepare_features
+
+    def counted(down, *a, **k):
+        prepared.append(down)
+        return prepare(down, *a, **k)
+
+    monkeypatch.setattr(pl, "prepare_features", counted)
+    cfg = _model_config(bumpy, tmp_path)
+    ply = cfg.reference_model_path
+    pipe = Pipeline(cfg, sleep_fn=lambda s: None)
+    first = _run(pipe, bumpy["K"])
+    second = _run(pipe, bumpy["K"])
+    assert loads == [ply]
+    assert sum(down is pipe._reference[1] for down in prepared) == 2
+    assert pipe._degraded == 0 and first[1][0]["fitness"] > 0.8
+    _assert_bitwise(first, second)
+    _assert_bitwise(second, _fresh(cfg, bumpy["K"]))
+
+
+SHIFT = np.array([0.016, -0.008, 0.0], np.float32)  # whole voxels
+
+
+@pytest.mark.parametrize("change", ["other_size", "same_size", "voxel_size"])
+def test_changed_model_or_setting_reloads(bumpy, tmp_path, monkeypatch,
+                                          change):
+    """A rewritten model file (new content of another size; the same size
+    with its mtime moved) or a changed registration setting reloads the
+    model, and the run equals a fresh Pipeline's on the new file or
+    setting."""
+    loads = _counted_loads(monkeypatch)
+    cfg = _model_config(bumpy, tmp_path)
+    ply = cfg.reference_model_path
+    pipe = Pipeline(cfg, sleep_fn=lambda s: None)
+    before = _run(pipe, bumpy["K"])
+    st = os.stat(ply)
+    if change == "voxel_size":
+        cfg.registration.voxel_size = 0.01
+    else:
+        pts = bumpy["pts"] + SHIFT
+        if change == "other_size":
+            pts = pts[:-500]
+        _write_model(ply, pts)
+        assert (os.stat(ply).st_size == st.st_size) == (change == "same_size")
+        if change == "same_size":
+            os.utime(ply, ns=(st.st_atime_ns, st.st_mtime_ns + 10**9))
+    after = _run(pipe, bumpy["K"])
+    assert loads == [ply] * 2
+    assert pipe._degraded == 0
+    _assert_bitwise(after, _fresh(cfg, bumpy["K"]))
+    if change != "voxel_size":  # the pose follows the moved model
+        np.testing.assert_allclose(after[0][0][:3, 3],
+                                   before[0][0][:3, 3] - SHIFT, atol=0.002)
+
+
+def test_procedural_model_builds_every_run(monkeypatch):
+    """With no model file the procedural grid is built on every run, as
+    before, and nothing is kept."""
+    from tpu3d_torch.pipeline import pipeline as pl
+
+    loads = _counted_loads(monkeypatch)
+    grids = []
+    grid = pl.generate_reference_grid
+
+    def counted(*a, **k):
+        grids.append(1)
+        return grid(*a, **k)
+
+    monkeypatch.setattr(pl, "generate_reference_grid", counted)
+    pipe = Pipeline(_port_config(lambda c: c), sleep_fn=lambda s: None)
+    first = _run(pipe, None)
+    second = _run(pipe, None)
+    assert len(grids) == 2 and loads == [] and pipe._reference is None
+    _assert_bitwise(first, second)

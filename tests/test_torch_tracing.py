@@ -18,7 +18,11 @@ from torch.profiler import ProfilerActivity, profile
 import tpu3d_torch
 from tpu3d_torch.config import PipelineConfig
 from tpu3d_torch.models.fixtures import make_pair
-from tpu3d_torch.models.procedural import generate_box_mask
+from tpu3d_torch.models.ply import save_ply
+from tpu3d_torch.models.procedural import (
+    generate_box_mask,
+    generate_reference_grid,
+)
 from tpu3d_torch.ops import icp as icp_mod
 from tpu3d_torch.ops import ransac as ransac_mod
 from tpu3d_torch.pipeline import Pipeline
@@ -34,7 +38,7 @@ PARENTS = {
     "register_pair": {None},
     "io.read_frame": {"pipeline.run"},
     "io.get_masks": {"pipeline.run"},
-    "io.load_ply": {"pipeline.run"},
+    "io.load_ply": {"pipeline.reference"},
     "pipeline.reference": {"pipeline.run"},
     "pipeline.prepare_instance": {"pipeline.run"},
     "pipeline.register": {"pipeline.run"},
@@ -226,6 +230,56 @@ def test_pipeline_pool_spans_carry_their_run(tmp_path):
             "pipeline.register", "pipeline.instance", "pipeline.dedup",
             "prepare.downsample", "ransac", "icp"}
     assert all(r in {q for q, _ in roots} for _, _, r, _ in spans)
+
+
+def test_pipeline_reference_kept_counts_hits(tmp_path):
+    """After an untraced run, two traced runs on one Pipeline reuse the
+    model read from its file: two hits, no load, and each run opens
+    ``pipeline.reference`` but not ``io.load_ply``."""
+    cfg = _pipeline_config(tmp_path, 1)
+    cfg.reference_model_path = str(tmp_path / "model.ply")
+    save_ply(cfg.reference_model_path, generate_reference_grid()[0])
+    pipe = Pipeline(cfg, sleep_fn=lambda s: None)
+    off = pipe.run()
+    logdir = str(tmp_path / "trace")
+    with profiling.trace(logdir):
+        runs = [pipe.run(), pipe.run()]
+    for on in runs:
+        assert len(on) == len(off) >= 1
+        for a, b in zip(on, off):
+            np.testing.assert_array_equal(a, b)
+    with open(os.path.join(logdir, "counters.json")) as f:
+        counts = json.load(f)
+    assert counts["pipeline.reference.hits"] == 2
+    assert counts.get("pipeline.reference.loads", 0) == 0
+
+    spans = _spans(logdir)
+    _check_nesting(spans)
+    roots = [r for n, _, r, _ in spans if n == "pipeline.run"]
+    assert len(roots) == 2
+    for request in roots:
+        names = [n for n, _, r, _ in spans if r == request]
+        assert names.count("pipeline.reference") == 1
+        assert "io.load_ply" not in names
+
+
+def test_pipeline_reference_first_run_counts_a_load(tmp_path):
+    """A Pipeline's first run reads its model inside
+    ``pipeline.reference`` and counts one load and no hit."""
+    cfg = _pipeline_config(tmp_path, 1)
+    cfg.reference_model_path = str(tmp_path / "model.ply")
+    save_ply(cfg.reference_model_path, generate_reference_grid()[0])
+    logdir = str(tmp_path / "trace")
+    with profiling.trace(logdir):
+        assert len(Pipeline(cfg, sleep_fn=lambda s: None).run()) >= 1
+    with open(os.path.join(logdir, "counters.json")) as f:
+        counts = json.load(f)
+    assert counts["pipeline.reference.loads"] == 1
+    assert counts.get("pipeline.reference.hits", 0) == 0
+    spans = _spans(logdir)
+    _check_nesting(spans)
+    assert [p for n, _, _, p in spans if n == "io.load_ply"] == [
+        "pipeline.reference"]
 
 
 def _icp_problem():

@@ -7,7 +7,9 @@ prepare or registration raises is reported and skipped (on the card a
 failed ICP included), a failed ICP on CPU state is retried, and a low
 fitness is warned about but the pose is still used. Per-instance prepare
 fans out over a host thread pool (pipeline.cpp:321-339); instances that
-share a capacity bucket register as one group, member by member.
+share a capacity bucket register as one group, member by member. A
+reference model read from a file is read and downsampled once and kept
+between runs while the file, the settings and the device stay the same.
 
 ``use_gpu`` puts every tensor on the card (``cuda``) or, when false, on
 the CPU, where each kernel's plain version runs. A ``parallel:`` block
@@ -22,6 +24,8 @@ result instead of re-running the sparse arm first.
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
@@ -76,6 +80,9 @@ class Pipeline:
         # model is prepared) so instance clouds never mix fused and gather
         # FPFH against the model's.
         self._neighbor_mode: str = "auto"
+        # The downsampled reference model read from a file, kept between
+        # runs: (key, cloud); _reference_model.
+        self._reference: Optional[tuple] = None
         # Diagnostic counters: ICP runs retried on CPU state, and instances
         # that raised and were skipped.
         self._host_icp_retries = 0
@@ -461,6 +468,78 @@ class Pipeline:
         exercise the retry and the degrade branch)."""
         return self._icp(source, target, init_T, threshold)
 
+    # -------------------------------------------------------- reference model
+    def _reference_key(self) -> Optional[tuple]:
+        """What the downsampled reference model depends on: the model
+        file's identity (``os.stat`` of its real path), the registration
+        settings and the device. None where no file is read (the
+        procedural grid) or it cannot be stat'ed: such a model is never
+        kept."""
+        cfg = self.config
+        if not cfg.reference_model_path:
+            return None
+        try:
+            st = os.stat(os.path.realpath(cfg.reference_model_path))
+        except OSError:
+            return None
+        return ((st.st_dev, st.st_ino, st.st_size, st.st_mtime_ns,
+                 st.st_ctime_ns),
+                dataclasses.asdict(cfg.registration), self.device)
+
+    def _reference_model(self) -> tuple:
+        """(ref_cloud, ref_features). The model is read, uploaded and
+        downsampled once while its key holds; a changed key reads it again
+        and the new cloud replaces the kept one (the key is taken before
+        the file is read, so a file changed meanwhile reloads at the next
+        run). Its normals, FPFH and K5's target operand are computed from
+        the kept cloud on every run, where the bin cell of ``portbench/``
+        judges them. Nothing downstream writes into the kept cloud."""
+        cfg = self.config
+        key = self._reference_key()
+        kept = self._reference
+        if key is not None and kept is not None and kept[0] == key:
+            ref_down = kept[1]
+            print("Reference model unchanged: reusing its downsampled cloud")
+            count_event("pipeline.reference.hits")
+        else:
+            self._reference = None  # the old model's memory goes first
+            ref_down = self._load_reference()
+            count_event("pipeline.reference.loads")
+            if key is not None:
+                self._reference = (key, ref_down)
+        self._neighbor_mode = resolve_neighbor_mode(ref_down.capacity)
+        if self._mesh is not None and self._neighbor_mode == "fused":
+            ref_cloud, ref_features, _ = self._prepare_sharded(ref_down)
+        else:
+            ref_cloud, ref_features = prepare_features(
+                ref_down, cfg.registration, self._neighbor_mode
+            )
+        if self._mesh is None:
+            # K5's target operand, once per run.
+            ref_features = with_target_operand(ref_features)
+        return ref_cloud, ref_features
+
+    def _load_reference(self) -> PointCloud:
+        """The model (the procedural grid where no file is named), on the
+        device and downsampled."""
+        cfg = self.config
+        if not cfg.reference_model_path and not cfg.use_camera:
+            print("Generating dummy reference model...")
+            ref_pts, _ = generate_reference_grid()
+            ref_raw = PointCloud.from_numpy(ref_pts, device=self.device)
+        else:
+            with span("io.load_ply"):
+                pts, cols = load_ply(cfg.reference_model_path)
+            if len(pts) == 0:
+                print("Warning: Empty reference model. Registration may fail.")
+            ref_raw = PointCloud.from_numpy(pts, colors=cols,
+                                            device=self.device)
+        return downsample_bucketed(
+            ref_raw,
+            cfg.registration,
+            capacity=cfg.registration.max_points or None,
+        )
+
     # ------------------------------------------------------------------- run
     @spanned("pipeline.run", root=True)
     def run(self) -> List[np.ndarray]:
@@ -468,7 +547,6 @@ class Pipeline:
         print("\n=== Starting Pipeline ===")
         self.instance_results = []  # fresh per run (save_results consistency)
         cfg = self.config
-        dev = self.device
 
         rgb: Optional[np.ndarray] = None
         depth: Optional[np.ndarray] = None
@@ -534,33 +612,8 @@ class Pipeline:
         print(f"Found {len(masks)} masks")
 
         print("\n[3/5] Loading reference model...")
-        if not cfg.reference_model_path and not cfg.use_camera:
-            print("Generating dummy reference model...")
-            ref_pts, _ = generate_reference_grid()
-            ref_raw = PointCloud.from_numpy(ref_pts, device=dev)
-        else:
-            with span("io.load_ply"):
-                pts, cols = load_ply(cfg.reference_model_path)
-            if len(pts) == 0:
-                print("Warning: Empty reference model. Registration may fail.")
-            ref_raw = PointCloud.from_numpy(pts, colors=cols, device=dev)
-
         with span("pipeline.reference"):
-            ref_down = downsample_bucketed(
-                ref_raw,
-                cfg.registration,
-                capacity=cfg.registration.max_points or None,
-            )
-            self._neighbor_mode = resolve_neighbor_mode(ref_down.capacity)
-            if self._mesh is not None and self._neighbor_mode == "fused":
-                ref_cloud, ref_features, _ = self._prepare_sharded(ref_down)
-            else:
-                ref_cloud, ref_features = prepare_features(
-                    ref_down, cfg.registration, self._neighbor_mode
-                )
-        if self._mesh is None:
-            # K5's target operand, once per reference model.
-            ref_features = with_target_operand(ref_features)
+            ref_cloud, ref_features = self._reference_model()
 
         if cfg.visualization != "none":
             self.viewer = SceneViewer()
