@@ -11,13 +11,19 @@ Phases, each fatal on failure:
      per-kernel resource report (registers and spills go into the kernels
      line); then the host runtime (g++, csrc/host) and its build time;
   3. the reference-parity route at bucket 8,192 (the bench fixture
-     ``make_pair(8192, voxel=0.005)``): K5 top-1 NN at D=33 and D=3, K6
+     ``make_pair(8192, voxel=0.005)``): the gather arm's CUDA graph replay
+     against the arm run eagerly, bit for bit, and both timed for one
+     cloud; K12 against the stable sort and slice, bit for bit, on
+     ``knn``'s 1,024 x 8,192 chunks (5,700 valid rows, and the fixture's
+     source) at k 100 and 30, timed beside its bytes bound, the sort and
+     ``torch.topk``; K5 top-1 NN at D=33 and D=3, K6
      hypothesis scoring (25,600 hypotheses x 2,048 estimate rows, and 32
      finalists x 8,192 rows) and K7 ICP statistics (its sums and its
      match-only epilogue) against their plain PyTorch versions on the same
-     card inputs; then ``tpu3d_torch.register_pair`` with the K5/K6/K7
-     launch counts, bench.py's quality gate (rotation error < 0.02,
-     translation error < 0.005 m), warm pairs and a stage breakdown; and
+     card inputs; then ``tpu3d_torch.register_pair`` with the K5/K6/K7/K12
+     launch counts (K12: 16, two replays of 8 chunks), bench.py's quality
+     gate (rotation error < 0.02, translation error < 0.005 m), warm pairs
+     and a stage breakdown; and
      ``register_pair`` with ``use_point_to_plane=False`` (point-to-point
      ICP through K7's match-only epilogue, never its sums), through the
      gate;
@@ -250,6 +256,7 @@ KERNEL_FUNCTIONS = {
     "ransac_score": ["score_tc_kernel", "score_reduce"],
     "ransac_hyp": ["ransac_hyp_kernel"],
     "gather_hyp": ["gather_hyp_kernel"],
+    "knn_select": ["knn_select_kernel"],
     "icp_p2plane_stats": ["icp_stats_kernel"],
     "icp_matches": ["icp_stats_kernel"],
     "bilateral_filter": ["bilateral_kernel"],
@@ -675,12 +682,82 @@ def icp_bytes(torch, src, sorted_x, lo, length, valid_b):
             + 12 * covered_columns(torch, lo, length, m) + 4 * searches)
 
 
+def knn_select_phase(torch, neighbors, dev, entry, cloud_rows=None):
+    """K12 on ``knn``'s own chunks at bucket 8,192: the 1,024 x 8,192
+    distance rows of a cloud with 5,700 valid rows (``pair_8k``'s), as
+    ``knn`` builds them (the matmul expansion plus the invalid targets'
+    sentinel), at k 100 (the gather route's) and 30 (the normals' and
+    ``prepare_icp_target``'s): bit for bit against the stable sort and
+    slice, on the first chunk and on the one that holds the last valid rows
+    and the padding, and on ``cloud_rows`` (a real cloud's (points, mask))
+    when given; then timed on the first chunk against the sort and
+    ``torch.topk``. Bound: bytes, Q*M*4 read and Q*k*8 written."""
+    g = torch.Generator().manual_seed(5700)
+    pts = torch.zeros(8192, 3)
+    pts[:5700] = torch.rand(5700, 3, generator=g) * torch.tensor(
+        [0.18, 0.18, 0.01])
+    clouds = [(pts.to(dev), torch.arange(8192, device=dev) < 5700)]
+    if cloud_rows is not None:
+        clouds.append(cloud_rows)
+
+    def chunk(points, mask, start):
+        invalid = torch.where(mask, 0.0, 1e30).to(torch.float32)
+        return (neighbors.pairwise_sqdist(points[start:start + 1024], points)
+                + invalid[None, :])
+
+    first = chunk(*clouds[0], 0)
+    for k in (100, 30):
+        for points, mask in clouds:
+            last = (int(mask.sum()) - 1) // 1024 * 1024
+            for start in (0, last):
+                d2 = chunk(points, mask, start)
+                before = neighbors.knn_select.launches
+                kv, ki = neighbors.knn_select(d2, k)
+                pv, pi = neighbors.knn_select_plain(d2, k)
+                torch.cuda.synchronize()
+                check(neighbors.knn_select.launches == before + 1,
+                      "K12 did not launch")
+                check(torch.equal(ki, pi) and torch.equal(
+                    kv.view(torch.int32), pv.view(torch.int32)),
+                      f"K12 differs from the sort at k {k}, rows {start}")
+        q, m = first.shape
+        sfx = f"_k{k}"
+        b_ms, b_by = bound(0, 4.0 * q * m + 8.0 * q * k)
+        entry.update({
+            f"shape{sfx}": [q, m, k], f"bit_equal{sfx}": True,
+            f"ms{sfx}": cuda_ms(
+                torch, lambda: neighbors.knn_select(first, k)),
+            f"device_ms{sfx}": per_call_device_ms(
+                torch, lambda: neighbors.knn_select(first, k)),
+            f"plain_ms{sfx}": cuda_ms(
+                torch, lambda: neighbors.knn_select_plain(first, k)),
+            f"library_ms{sfx}": cuda_ms(
+                torch, lambda: torch.topk(first, k, dim=1, largest=False)),
+            f"bound_ms{sfx}": b_ms, f"bound_by{sfx}": b_by,
+        })
+        log(f"K12{sfx}: {entry['ms' + sfx]:.4f} ms (device "
+            f"{entry['device_ms' + sfx]:.4f}), bound {b_ms:.5f} ({b_by}), "
+            f"the stable sort and slice {entry['plain_ms' + sfx]:.4f}, "
+            f"torch.topk {entry['library_ms' + sfx]:.4f}")
+
+
 def reference_route(torch, np, dev):
     """Phase 3: bucket 8,192, the reference-parity route."""
     import tpu3d_torch
     from tpu3d_torch.models.fixtures import make_pair
-    from tpu3d_torch.ops import icp, icp_stats, nn, ransac, ransac_score
-    from tpu3d_torch.registration import downsample_bucketed, prepare_features
+    from tpu3d_torch.ops import (
+        icp,
+        icp_stats,
+        neighbors,
+        nn,
+        ransac,
+        ransac_score,
+    )
+    from tpu3d_torch.registration import (
+        downsample_bucketed,
+        gather_arm,
+        prepare_features,
+    )
 
     src_np, tgt_np, R_true, t_true = make_pair(N_POINTS, voxel=VOXEL)
     cfg = tpu3d_torch.RegistrationConfig(voxel_size=VOXEL)
@@ -689,13 +766,26 @@ def reference_route(torch, np, dev):
     sd = downsample_bucketed(src, cfg)
     td = downsample_bucketed(tgt, cfg)
     check(sd.capacity == td.capacity == 8192, f"bucket {sd.capacity}")
+    down = sd
     sd, sf = prepare_features(sd, cfg)
     td, tf = prepare_features(td, cfg)
     torch.cuda.synchronize()
     log(f"bucket 8192: {sd.count()} / {td.count()} rows")
+    # The gather arm's graph replay against the same arm run eagerly.
+    radius = float(np.float32(VOXEL * 5.0))
+    _, eager, eager_feat = gather_arm(down, radius)
+    check(torch.equal(sd.normals, eager.normals)
+          and torch.equal(sf.descriptors, eager_feat.descriptors),
+          "the gather graph's replay differs from the eager arm")
+    gather_ms = {
+        "eager_ms": cuda_ms(torch, lambda: gather_arm(down, radius)),
+        "replay_ms": cuda_ms(torch, lambda: prepare_features(down, cfg)),
+    }
+    log(f"bucket 8192 gather arm, one cloud: {gather_ms}")
 
-    k5, k6, k7, k7m = {}, {}, {}, {}
+    k5, k6, k7, k7m, k12 = {}, {}, {}, {}, {}
     sfx = "_b8192"
+    knn_select_phase(torch, neighbors, dev, k12, (down.points, down.mask))
     nn_phase(torch, nn, sf.descriptors, sd.mask, tf.descriptors, tf.mask,
              sfx, k5)
     nn_phase(torch, nn, sd.points, sd.mask, td.points, td.mask,
@@ -731,7 +821,7 @@ def reference_route(torch, np, dev):
 
     pair()  # warm: allocator and library state
     counters = (nn.nearest_neighbor, ransac_score.score_hypotheses,
-                icp_stats.icp_p2plane_stats)
+                icp_stats.icp_p2plane_stats, neighbors.knn_select)
     for c in counters:
         c.launches = 0
     torch.cuda.synchronize()
@@ -740,9 +830,11 @@ def reference_route(torch, np, dev):
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = [c.launches for c in counters]
-    log(f"bucket 8192 main path launches K5/K6/K7: {launches}")
+    log(f"bucket 8192 main path launches K5/K6/K7/K12: {launches}")
     check(all(n > 0 for n in launches), f"a kernel did not launch: {launches}")
-    for k, n in zip((k5, k6, k7), launches):
+    # Two clouds, each one graph replay of 8 chunks of K12.
+    check(launches[3] == 2 * 8, f"K12 launched {launches[3]} times, not 16")
+    for k, n in zip((k5, k6, k7, k12), launches):
         k["launches" + sfx] = n
     rot_err, trn_err = gate(np, refined, R_true, t_true)
     times = [first_ms] + host_ms(torch, pair, warm=0, reps=2)[0]
@@ -767,12 +859,13 @@ def reference_route(torch, np, dev):
         "fitness": float(refined.fitness),
         "coarse_fitness": float(coarse.fitness), "rot_err": rot_err,
         "trans_err": trn_err, "launches": launches,
+        "gather_arm_one_cloud": gather_ms,
         "point_to_point": knob_pair(
             torch, np, src, tgt, tpu3d_torch.RegistrationConfig(
                 voxel_size=VOXEL, use_point_to_plane=False),
             R_true, t_true, "bucket 8192, point-to-point", k7m, sfx),
     }
-    return k5, k6, k7, k7m, route
+    return k5, k6, k7, k7m, k12, route
 
 
 def knob_pair(torch, np, src, tgt, cfg, R_true, t_true, label, k7m=None,
@@ -3327,7 +3420,11 @@ def run(args):
     log(f"host runtime built in {host_build_s:.1f} s")
 
     card_states = {"phase 3": card_state()}
-    k5, k6, k7, k7m, ref_route = reference_route(torch, np, dev)
+    k5, k6, k7, k7m, k12, ref_route = reference_route(torch, np, dev)
+    k12.update({"name": "knn_select (K12)", "route": "cuda",
+                "source": "tpu3d_torch/csrc/knn_select.cu",
+                "replaces": "lax.top_k in tpu3d/ops/neighbors.py knn "
+                            "(XLA-compiled, no pallas_call)"})
     k5.update({"name": "nn_top1 (K5)", "route": "cuda",
                "source": "tpu3d_torch/csrc/nn.cu",
                "replaces": "tpu3d/ops/nn_pallas.py:111"})
@@ -3408,7 +3505,7 @@ def run(args):
         scale_route["two_stage"]["k11_launches_per_pair"])
     k11["launches_batch"] = scene_routes[2]["k11_launches"]
     k11["launches_cli"] = cli["hyp_launches"]["K11"]
-    kernels = kernels + [k7m, k10, k11]
+    kernels = kernels + [k7m, k10, k11, k12]
     card_states["phase 9"] = card_state()
     example_counters = {k: f for k, f in counters.items() if k != "K9"}
     example_counters.update({"K7m": icp_stats.icp_matches,

@@ -55,7 +55,7 @@ def test_signatures_name_every_entry_point():
                  "tpu3d_icp_p2plane_stats", "tpu3d_moments_sweep",
                  "tpu3d_spfh_sweep", "tpu3d_fpfh_sweep",
                  "tpu3d_bilateral_filter", "tpu3d_nn_walk_top1",
-                 "tpu3d_probe_unary", "tpu3d_probe_argmin",
+                 "tpu3d_knn_select", "tpu3d_probe_unary", "tpu3d_probe_argmin",
                  "tpu3d_probe_cumsum", "tpu3d_probe_dot_axis0",
                  "tpu3d_probe_transpose"):
         assert name in build.SIGNATURES, name
@@ -74,5 +74,8 @@ def test_signatures_name_every_entry_point():
         [build._P] * 3 + [build._I] * 6 + [build._P] * 5)
     assert build.SIGNATURES["tpu3d_ransac_score"] == (
         [build._P] * 4 + [build._I] * 4 + [build._F] * 2 + [build._P] * 5)
+    # K12: d2, then q, m, k, then d2 and idx out, stream
+    assert build.SIGNATURES["tpu3d_knn_select"] == (
+        [build._P] + [build._I] * 3 + [build._P] * 3)
     sources = {p.name for p in build._sources()}
-    assert {"nn_walk.cu", "probe.cu"} <= sources
+    assert {"nn_walk.cu", "probe.cu", "knn_select.cu"} <= sources

@@ -19,8 +19,10 @@ from tpu3d_torch.ops import (
     depth,
     features,
     fused_features,
+    gather_graph,
     icp,
     icp_stats,
+    neighbors,
     nn,
     nn_walk,
     ransac,
@@ -1548,3 +1550,147 @@ def test_sharded_ransac_launches_k11_on_card(dev):
     assert ransac.gather_hypotheses.launches >= before + 2
     T = res.transformation.cpu().numpy()
     assert np.abs(T[:3, :3] - R).max() < 0.02
+
+
+def _select_both(d2, k):
+    """K12 and its plain version on the same card tensor; K12 counted once."""
+    before = neighbors.knn_select.launches
+    kv, ki = neighbors.knn_select(d2, k)
+    pv, pi = neighbors.knn_select_plain(d2, k)
+    torch.cuda.synchronize()
+    assert neighbors.knn_select.launches == before + 1
+    assert ki.dtype == pi.dtype == torch.int32 and kv.shape == (d2.shape[0], k)
+    return kv, ki, pv, pi
+
+
+def _assert_same_bits(kv, ki, pv, pi):
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+
+
+def _knn_rows(dev, pts, mask, rows=1024):
+    """One chunk of ``knn``'s d2 as it builds it: the matmul expansion plus
+    the sentinel of the invalid targets."""
+    t = pts.to(dev)
+    invalid = torch.where(mask.to(dev), 0.0, 1e30).to(torch.float32)
+    return neighbors.pairwise_sqdist(t[:rows], t) + invalid[None, :]
+
+
+@pytest.mark.parametrize("k", [100, 30])
+@pytest.mark.parametrize("valid", [5700, 5190])
+def test_knn_select_kernel_at_the_gather_shapes(dev, k, valid):
+    """K12 against the stable sort and slice, bit for bit, on knn's
+    1,024 x 8,192 chunks at bucket 8,192 (pair_8k's ~5,700 valid rows and
+    the fixture pair's 5,190), the first chunk and the one that holds the
+    last valid rows and the padding."""
+    g = torch.Generator().manual_seed(valid + k)
+    pts = torch.zeros(8192, 3)
+    pts[:valid] = torch.rand(valid, 3, generator=g) * torch.tensor(
+        [0.18, 0.18, 0.01])
+    mask = torch.arange(8192) < valid
+    t = pts.to(dev)
+    invalid = torch.where(mask.to(dev), 0.0, 1e30).to(torch.float32)
+    for start in (0, (valid // 1024) * 1024):
+        d2 = neighbors.pairwise_sqdist(t[start:start + 1024], t) + invalid
+        _assert_same_bits(*_select_both(d2, k))
+
+
+@pytest.mark.parametrize("m,valid,k", [(256, 40, 100), (256, 256, 128),
+                                       (1003, 900, 30), (300, 20, 1),
+                                       (16384, 11000, 100)])
+def test_knn_select_kernel_ties_sentinels_and_rows(dev, m, valid, k):
+    """Duplicated lattice points (equal distances, +0.0 included), fewer
+    valid targets than k (the sentinels in column order), a row not a
+    multiple of four (unaligned staging), k = 1 and 128, and a row too long
+    to stage in shared memory: K12 equals the stable sort and slice."""
+    rng = np.random.default_rng(m + valid + k)
+    pts = rng.integers(0, 4, (m, 3)).astype(np.float32) * 0.25
+    pts[m // 2:] = pts[: m - m // 2]
+    pts = torch.from_numpy(pts)
+    mask = torch.from_numpy(rng.permutation(m) < valid)
+    d2 = _knn_rows(dev, pts, mask, rows=min(m, 512))
+    _assert_same_bits(*_select_both(d2, k))
+    # Whole rows of one value: every key ties.
+    flat = torch.full((4, m), 0.5, device=dev)
+    _assert_same_bits(*_select_both(flat, k))
+
+
+def test_knn_on_card_takes_k12_below_129(dev):
+    """``knn`` on the card selects by K12 (one launch a chunk) for k <=
+    128 and keeps the stable sort above, with the same neighbours as the
+    sort on the same distances."""
+    g = torch.Generator().manual_seed(7)
+    pts = (torch.rand(3000, 3, generator=g) * 0.1).to(dev)
+    mask = (torch.rand(3000, generator=g) > 0.2).to(dev)
+    before = neighbors.knn_select.launches
+    idx, d2 = neighbors.knn(pts, pts, mask, k=100)
+    torch.cuda.synchronize()
+    assert neighbors.knn_select.launches == before + 3
+    idx2, d22 = neighbors.knn(pts, pts, mask, k=129)
+    torch.cuda.synchronize()
+    assert neighbors.knn_select.launches == before + 3
+    assert torch.equal(idx2[:, :100], idx) and torch.equal(d22[:, :100], d2)
+
+
+def _gather_clouds(dev, voxel=0.005):
+    from tpu3d_torch import registration as reg
+
+    src, tgt, _, _ = make_pair(8192, voxel=voxel)
+    cfg = tpu3d_torch.RegistrationConfig(voxel_size=voxel)
+    downs = [reg.downsample_bucketed(
+        tpu3d_torch.PointCloud.from_numpy(c, device=dev), cfg)
+        for c in (src, tgt)]
+    assert downs[0].capacity == downs[1].capacity == 8192
+    return downs, cfg
+
+
+def test_gather_graph_equals_eager_on_card(dev, monkeypatch):
+    """The brute gather arm replayed as one CUDA graph, source then target
+    back to back at one key, against the same arm run eagerly: (idx, d2),
+    normals and descriptors bit for bit; one capture, K12 counted 8 times
+    a replay; a second replay of the same key captures nothing."""
+    from tpu3d_torch import registration as reg
+
+    monkeypatch.setattr(gather_graph, "_graphs", {})
+    (sd, td), cfg = _gather_clouds(dev)
+    radius = float(np.float32(cfg.voxel_size * 5.0))
+    eager = []
+    for c in (sd, td):
+        (idx, d2), cloud, feat = reg.gather_arm(c, radius)
+        eager.append((idx, d2, cloud.normals, feat.descriptors))
+    before = neighbors.knn_select.launches
+    replayed = []
+    for c in (sd, td):
+        cloud, feat = reg.prepare_features(c, cfg)
+        g = next(iter(gather_graph._graphs.values()))
+        replayed.append((g.outputs[0].clone(), g.outputs[1].clone(),
+                         cloud.normals, feat.descriptors))
+    torch.cuda.synchronize()
+    assert len(gather_graph._graphs) == 1 and g.graph is not None
+    # The capture's eager warm-up and two replays of 8 chunks each.
+    assert neighbors.knn_select.launches == before + 3 * 8
+    for e, r in zip(eager, replayed):
+        for a, b in zip(e, r):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    graph = g.graph
+    again = reg.prepare_features(sd, cfg)
+    torch.cuda.synchronize()
+    assert g.graph is graph and len(gather_graph._graphs) == 1
+    assert torch.equal(again[1].descriptors, replayed[0][3])
+
+
+def test_gather_graph_second_radius_captures_again(dev, monkeypatch):
+    """Another FPFH radius is another key: a second graph, each equal to
+    its eager arm."""
+    from tpu3d_torch import registration as reg
+
+    monkeypatch.setattr(gather_graph, "_graphs", {})
+    (sd, _), cfg = _gather_clouds(dev)
+    cfg2 = tpu3d_torch.RegistrationConfig(voxel_size=0.004)
+    for c in (cfg, cfg2):
+        cloud, feat = reg.prepare_features(sd, c)
+        _, eager, eager_feat = reg.gather_arm(
+            sd, float(np.float32(c.voxel_size * 5.0)))
+        assert torch.equal(cloud.normals, eager.normals)
+        assert torch.equal(feat.descriptors, eager_feat.descriptors)
+    assert len(gather_graph._graphs) == 2

@@ -51,9 +51,11 @@ PARENTS = {
                          "pipeline.prepare_instance",
                          "registration.escalate", None},
     "prepare.sparse": {"register_pair", "pipeline.instance", None},
-    "prepare.neighbors": {"prepare.features"},
-    "prepare.normals": {"prepare.features"},
-    "prepare.fpfh": {"prepare.features"},
+    # Under prepare.gather in the card's capture of the gather arm.
+    "prepare.neighbors": {"prepare.features", "prepare.gather"},
+    "prepare.normals": {"prepare.features", "prepare.gather"},
+    "prepare.fpfh": {"prepare.features", "prepare.gather"},
+    "prepare.gather": {"prepare.features"},
     "prepare.fused": {"prepare.features", "prepare.sparse",
                       "registration.escalate"},
     "ransac": {"register_pair", "pipeline.instance",

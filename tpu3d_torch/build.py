@@ -7,7 +7,9 @@ C interface, on first use, into
 sources, so an edited source is rebuilt). The library is loaded with
 ``ctypes``. Each C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
-exception.
+exception. Each wrapper counts its launches (:func:`count_launch`), and
+:func:`capture_graph` captures a CUDA graph with the launches a replay
+makes.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ SIGNATURES = {
     "tpu3d_fpfh_sweep": [_P] * 5 + [_I] * 5 + [_F, _P, _P],
     "tpu3d_bilateral_filter": [_P, _P, _I, _I, _I, _D, _F, _P],
     "tpu3d_nn_walk_top1": [_P] * 5 + [_I] * 8 + [_F, _P, _P, _P],
+    "tpu3d_knn_select": [_P, _I, _I, _I, _P, _P, _P],
     "tpu3d_probe_unary": [_P, _I, _I, _P, _P],
     "tpu3d_probe_argmin": [_P, _I, _I, _P, _P],
     "tpu3d_probe_cumsum": [_P, _I, _I, _P, _P],
@@ -66,6 +69,8 @@ _BUILD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
 # Every wrapper count_launch has counted, in first-launch order.
 _COUNTED: dict = {}
+# The launches a CUDA graph capture in this thread records: {wrapper: k}.
+_CAPTURING = threading.local()
 
 
 def _sources() -> list[Path]:
@@ -161,10 +166,46 @@ def check(err: int, name: str) -> None:
 def count_launch(wrapper, k: int = 1) -> None:
     """Add ``k`` (one launch, or a CUDA graph replay's launches of the
     kernel) to a kernel wrapper's ``launches`` count. The pipeline's
-    prepare threads launch kernels at once, so the count is locked."""
+    prepare threads launch kernels at once, so the count is locked.
+    Inside :func:`capture_graph`'s capture the launch is only recorded, for
+    that thread alone: a capture runs nothing."""
+    captured = getattr(_CAPTURING, "counts", None)
+    if captured is not None:
+        captured[wrapper] = captured.get(wrapper, 0) + k
+        return
     with _COUNT_LOCK:
         wrapper.launches += k
         _COUNTED.setdefault(id(wrapper), wrapper)
+
+
+def capture_graph(body, device, prepare=None,
+                  capture_error_mode: str = "global"):
+    """``body()`` once eagerly on a side stream (a warm-up: library handles,
+    the kernel library's build; its launches count), then ``prepare()``
+    if given, then ``body()`` captured into a CUDA graph. Returns the
+    graph, the captured call's outputs (the graph's own tensors, which each
+    replay overwrites) and the launches a replay makes as [(wrapper, k)],
+    to pass to :func:`count_launch` after each replay. Only this thread's
+    launches are the capture's: another thread's eager launches meanwhile
+    count as they run."""
+    import torch
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(device).wait_stream(side)
+    if prepare is not None:
+        prepare()
+    graph = torch.cuda.CUDAGraph()
+    _CAPTURING.counts = {}
+    try:
+        with torch.cuda.graph(graph, capture_error_mode=capture_error_mode):
+            outputs = body()
+        launches = list(_CAPTURING.counts.items())
+    finally:
+        _CAPTURING.counts = None
+    return graph, outputs, launches
 
 
 def counted() -> list:

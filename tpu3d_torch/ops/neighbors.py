@@ -1,8 +1,12 @@
-"""Exact k-nearest-neighbour search as chunked matmul + stable sort.
+"""Exact k-nearest-neighbour search as chunked matmul + a row-wise
+k-smallest selection.
 
 Counterpart of ``tpu3d/ops/neighbors.py`` (``pairwise_sqdist``, ``knn``,
 ``radius_capped_neighbors``). The top-1 search (``nearest_neighbor_xla``)
 has its counterpart beside its CUDA kernel, in :mod:`tpu3d_torch.ops.nn`.
+The selection on the card is K12 (``csrc/knn_select.cu``,
+:func:`knn_select`); its plain version is a stable sort and a slice
+(:func:`knn_select_plain`).
 """
 
 from __future__ import annotations
@@ -10,7 +14,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu3d_torch import build
+from tpu3d_torch.device import launches_kernel, on_device
+
 _BIG = 1e30
+# The largest k K12 selects; a larger k keeps the stable sort.
+KNN_SELECT_MAX_K = 128
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -43,10 +52,11 @@ def knn(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """k nearest targets per query: (idx i32[Q, k], d2 f32[Q, k]) ascending.
 
-    Ties go to the lowest target index, as ``lax.top_k`` orders them: a
-    stable ascending sort, then a slice (``torch.topk`` does not promise
-    the tie order). Invalid targets sit at +1e30; with fewer than k
-    targets the extra slots are index 0 at 1e30.
+    Ties go to the lowest target index, as ``lax.top_k`` orders them: each
+    chunk's rows go through :func:`knn_select`, a stable ascending sort
+    and a slice or K12's selection of the same pairs (``torch.topk`` does
+    not promise the tie order). Invalid targets sit at +1e30; with fewer
+    than k targets the extra slots are index 0 at 1e30.
 
     ``method``: 'auto' and 'exact' are this exact search. 'approx' names
     the TPU's ``approx_max_k`` partial reduction in the JAX package; there
@@ -59,10 +69,12 @@ def knn(
     k_eff = min(k, m)
     idx_parts, d2_parts = [], []
     for s in range(0, queries.shape[0], chunk):
+        # + invalid also turns clamp_min's -0.0 into +0.0, so every value
+        # is >= +0.0, as knn_select requires.
         d2 = pairwise_sqdist(queries[s:s + chunk], targets) + invalid[None, :]
-        d2s, order = torch.sort(d2, dim=1, stable=True)
-        idx_parts.append(order[:, :k_eff].to(torch.int32))
-        d2_parts.append(d2s[:, :k_eff])
+        d2k, idxk = knn_select(d2, k_eff)
+        idx_parts.append(idxk)
+        d2_parts.append(d2k)
     idx = torch.cat(idx_parts)
     d2 = torch.cat(d2_parts)
     if k_eff < k:
@@ -70,6 +82,46 @@ def knn(
         idx = torch.nn.functional.pad(idx, (0, pad))
         d2 = torch.nn.functional.pad(d2, (0, pad), value=_BIG)
     return idx, d2
+
+
+def knn_select_plain(d2: torch.Tensor,
+                     k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest values of each row of ``d2`` f32[Q, M], ascending,
+    and their columns (d2 f32[Q, k], idx i32[Q, k]), ties at the lower
+    column first: a stable ascending sort of each row, then a slice."""
+    d2s, order = torch.sort(d2, dim=1, stable=True)
+    return d2s[:, :k], order[:, :k].to(torch.int32)
+
+
+def knn_select(d2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`knn_select_plain`'s (d2, idx), bit for bit. A CUDA ``d2`` with
+    ``k`` ≤ :data:`KNN_SELECT_MAX_K` launches K12, which picks the same
+    (value, column) pairs without sorting the row: ``d2`` must then be
+    ≥ +0.0 everywhere (a squared distance, or the 1e30 sentinel), so that
+    its fp32 bits order as its values. Any other ``d2`` takes the plain
+    version (a larger ``k``, or none, on the card too)."""
+    if d2.ndim != 2 or not 0 <= k <= d2.shape[1]:
+        raise ValueError(f"knn_select takes (Q, M) rows and 0 <= k <= M, "
+                         f"got {tuple(d2.shape)} and k={k}")
+    if not launches_kernel(d2) or not 1 <= k <= KNN_SELECT_MAX_K:
+        return knn_select_plain(d2, k)
+    if d2.dtype != torch.float32:
+        raise TypeError("knn_select kernel takes float32 distances")
+    d2 = d2.contiguous()
+    q, m = d2.shape
+    out_d2 = torch.empty((q, k), dtype=torch.float32, device=d2.device)
+    out_idx = torch.empty((q, k), dtype=torch.int32, device=d2.device)
+    with on_device(d2.device):
+        err = build.library().tpu3d_knn_select(
+            d2.data_ptr(), q, m, k, out_d2.data_ptr(), out_idx.data_ptr(),
+            torch.cuda.current_stream(d2.device).cuda_stream,
+        )
+    build.check(err, "tpu3d_knn_select")
+    build.count_launch(knn_select)
+    return out_d2, out_idx
+
+
+knn_select.launches = 0
 
 
 def radius_capped_neighbors(

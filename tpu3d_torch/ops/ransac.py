@@ -855,25 +855,10 @@ class _ChunkBody:
 
     def _capture(self):
         count_event("ransac.graph_captures")
-        dev = self.bf.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.chunk_step()  # warm-up: a real chunk (counted)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.reset()
-        wrappers = (rotation_hypotheses, gather_hypotheses, score_hypotheses)
-        before = [w.launches for w in wrappers]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.chunk_step()
-        # Capture records launches without running them: each replay
-        # launches them.
-        self.replay_launches = []
-        for w, b in zip(wrappers, before):
-            self.replay_launches.append((w, w.launches - b))
-            w.launches = b
-        self.graph = graph
+        # The warm-up is a real chunk (counted); the capture starts from
+        # the reset best.
+        self.graph, _, self.replay_launches = build.capture_graph(
+            self.chunk_step, self.bf.device, prepare=self.reset)
 
 
 def _graph_body(key, make) -> _ChunkBody:

@@ -31,6 +31,7 @@ import torch
 
 from tpu3d_torch.config import RegistrationConfig
 from tpu3d_torch.device import launches_kernel
+from tpu3d_torch.ops import gather_graph
 from tpu3d_torch.ops.fpfh import compute_fpfh
 from tpu3d_torch.ops.fused_features import (
     fused_prepare_features,
@@ -52,6 +53,9 @@ from tpu3d_torch.utils.profiling import host_read, span, spanned
 from tpu3d_torch.utils.profiling import count as count_event
 
 FUSED_CAPACITY_THRESHOLD = 16384
+# The gather route's self-kNN k (FPFH's neighbours) and the normals' k.
+NEIGHBOR_K = 100
+NORMAL_K = 30
 
 
 def bucket_capacity(count: int, minimum: int = 256) -> int:
@@ -141,18 +145,33 @@ def prepare_features(
     """Normals + FPFH on a downsampled, compacted cloud: the fused sweeps
     at scale (or with ``neighbor_mode='fused'``), else the gather route on
     the ``surface_neighbors`` of that mode ('auto', 'slab', 'grid',
-    'brute')."""
+    'brute'). On the card the brute gather route replays one CUDA graph
+    per capacity and radius (``ops/gather_graph.py``), with the eager
+    route's results."""
     radius = float(np.float32(config.voxel_size * 5.0))
     if neighbor_mode == "fused" or (
         neighbor_mode == "auto" and down.capacity >= FUSED_CAPACITY_THRESHOLD
     ):
         return fused_prepare_features(down, radius)
+    # 'auto' is the brute search here (below the threshold).
+    if neighbor_mode in ("auto", "brute") and launches_kernel(down.points):
+        with span("prepare.gather"):
+            return gather_graph.gather_features(down, radius, gather_arm)
+    _, down, features = gather_arm(down, radius, neighbor_mode)
+    return down, features
+
+
+def gather_arm(down: PointCloud, radius: float, mode: str = "brute"):
+    """The gather route on ``mode``'s neighbours: the self-kNN (idx, d2),
+    the cloud with its normals, and its FPFH. ``prepare_features`` runs it
+    eagerly, or captures and replays it (``ops/gather_graph.py``), whose
+    capture records these spans once."""
     with span("prepare.neighbors"):
-        nbrs = surface_neighbors(down, radius, k=100, mode=neighbor_mode)
+        nbrs = surface_neighbors(down, radius, k=NEIGHBOR_K, mode=mode)
     with span("prepare.normals"):
-        down = estimate_normals(down, k=30, neighbors=nbrs)
+        down = estimate_normals(down, k=NORMAL_K, neighbors=nbrs)
     with span("prepare.fpfh"):
-        return down, compute_fpfh(down, radius, neighbors=nbrs)
+        return nbrs, down, compute_fpfh(down, radius, neighbors=nbrs)
 
 
 def prepare_icp_target(
